@@ -1,0 +1,99 @@
+"""Device copies of the biome / material tables ("the weights carried across").
+
+The numpy tables of ``mega_minecraft_tpu.world.biomes`` are the one source: the plain
+versions read them directly, and the CUDA kernels receive the tensors made here as
+arguments, so a table edit reaches both paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from mega_minecraft_tpu.world import biomes as bio
+
+#: blocks per column
+Y_SIZE = 384
+#: carved caves cannot exist at or above this y (mega_minecraft_tpu/terrain/caves.py:44-48)
+CARVE_Y_MAX = 144
+#: the cave biome is CaveBiome.NONE at or above this y (terrain/fill.py:389-394)
+CAVE_BIOME_Y_MAX = 192
+#: seeds of the cave-biome draws at layer bottoms / tops (caves) and per block (fill)
+SEED_BOTTOM_BIOME = 329271348
+SEED_TOP_BIOME = 4982921
+SEED_FILL_CAVE_BIOME = 190249401
+
+
+@dataclasses.dataclass(frozen=True)
+class Tables:
+    biome_noise_weights: torch.Tensor  # [24, 6] i32: 0 ignore, 1 positive, 2 negative
+    biome_material_weights: torch.Tensor  # [24, 20] f32
+    material_thickness: torch.Tensor  # [20] f32
+    material_amplitude_or_tan_repose: torch.Tensor  # [20] f32
+    material_scale_or_max_slope: torch.Tensor  # [20] f32
+    material_block: torch.Tensor  # [20] i32 block ids
+    grass_blocks: torch.Tensor  # [24] i32 block ids
+    cave_biome_noise_weights: torch.Tensor  # [5, 4] i32
+    dir_vecs_2d: torch.Tensor  # [8, 2] i32 (dx, dz), odd rows diagonal
+    sea_level: int = bio.SEA_LEVEL
+    lava_level: int = bio.LAVA_LEVEL
+    max_cave_layers: int = bio.MAX_CAVE_LAYERS_PER_COLUMN
+
+    @property
+    def device(self) -> torch.device:
+        return self.biome_material_weights.device
+
+
+@functools.lru_cache(maxsize=None)
+def load_tables(device) -> Tables:
+    """The tables as contiguous tensors on ``device`` (cached: they are constants)."""
+    device = torch.device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return Tables(
+        biome_noise_weights=t(bio.BIOME_NOISE_WEIGHTS, torch.int32),
+        biome_material_weights=t(bio.BIOME_MATERIAL_WEIGHTS, torch.float32),
+        material_thickness=t(bio.MATERIAL_THICKNESS, torch.float32),
+        material_amplitude_or_tan_repose=t(bio.MATERIAL_AMPLITUDE_OR_TAN_REPOSE, torch.float32),
+        material_scale_or_max_slope=t(bio.MATERIAL_SCALE_OR_MAX_SLOPE, torch.float32),
+        material_block=t(bio.MATERIAL_BLOCK, torch.int32),
+        grass_blocks=t(bio.GRASS_BLOCKS, torch.int32),
+        cave_biome_noise_weights=t(bio.CAVE_BIOME_NOISE_WEIGHTS, torch.int32),
+        dir_vecs_2d=t(bio.DIR_VECS_2D, torch.int32),
+    )
+
+
+#: port dtype of every array the JAX stages return (by key)
+_STAGE_DTYPES = {
+    "heightfield": torch.float32,
+    "biome_weights": torch.float32,
+    "layers": torch.float32,
+    "starts": torch.int32,
+    "ends": torch.int32,
+    "bottom_biome": torch.int32,
+    "top_biome": torch.int32,
+    "chunk_pos": torch.int32,
+    "pos_halo": torch.int32,
+    "blocks": torch.uint8,
+}
+
+
+def from_jax_outputs(np_dict, device) -> dict:
+    """JAX stage outputs (as numpy, nested ``caves`` dict allowed) -> port tensors.
+
+    Lets a test feed each port stage exactly the JAX stage's inputs.  Unknown keys
+    raise, so a renamed stage output cannot be converted with a wrong dtype."""
+    out = {}
+    for k, v in np_dict.items():
+        if isinstance(v, dict):
+            out[k] = from_jax_outputs(v, device)
+            continue
+        if k not in _STAGE_DTYPES:
+            raise KeyError(f"no port dtype for stage output {k!r}")
+        out[k] = torch.tensor(np.asarray(v), device=torch.device(device)).to(_STAGE_DTYPES[k])
+    return out

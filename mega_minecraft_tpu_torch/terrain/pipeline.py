@@ -1,0 +1,70 @@
+"""Pipeline: heightfield -> layers -> caves -> fill over a chunk area.
+
+Port of the featureless leg of ``mega_minecraft_tpu/terrain/pipeline.py``
+(``generate_area_fused`` / ``_fused_gen_half`` and ``generate_area``).  Every stage
+dispatches on the device of ``pos_halo``: on CUDA the area is four kernel launches
+(K1-K4) with no host round trip between them; on the CPU it runs the plain versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import caves as caves_mod
+from . import fill, heightfield, layers
+
+_FEATURES_TODO = "SDF features and decorators are not ported yet (ROADMAP Queue 1, items 7-8)"
+_EROSION_TODO = "zone erosion is not ported yet (ROADMAP Queue 1, item 9)"
+
+
+def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
+    """The per-chunk pipeline for an ``ncx x ncz`` area.
+
+    Args:
+      pos_halo: [(ncz+2)*(ncx+2), 2] i32 world-block chunk origins, row-major with the
+        1-chunk halo included, on the device to run on.
+    Returns dict of tensors for the ncx*ncz inner chunks: blocks [B,16,16,384] u8,
+    heightfield, biome_weights, layers, caves (dict), chunk_pos.
+    """
+    if features:
+        raise NotImplementedError(_FEATURES_TODO)
+    hf, w = heightfield.generate_heightfield(pos_halo)
+    st = layers.layers_from_halo(hf, w, pos_halo, ncx, ncz)
+    cv = caves_mod.generate_caves(st["heightfield"], st["biome_weights"], st["chunk_pos"])
+    blocks = fill.fill_chunks(
+        st["heightfield"], st["biome_weights"], st["layers"], cv["starts"], cv["ends"],
+        st["chunk_pos"],
+    )
+    return {
+        "blocks": blocks,
+        "heightfield": st["heightfield"],
+        "biome_weights": st["biome_weights"],
+        "layers": st["layers"],
+        "caves": cv,
+        "chunk_pos": st["chunk_pos"],
+    }
+
+
+def chunk_positions(cx0: int, cz0: int, ncx: int, ncz: int, device) -> torch.Tensor:
+    """[ncz*ncx, 2] i32 world-block origins of the chunks at chunk coords (cx0, cz0)+,
+    row-major (x fastest)."""
+    iz, ix = np.meshgrid(np.arange(ncz), np.arange(ncx), indexing="ij")
+    pos = np.stack([(cx0 + ix) * 16, (cz0 + iz) * 16], axis=-1).reshape(-1, 2)
+    return torch.as_tensor(pos.astype(np.int32), device=device)
+
+
+def generate_area(cx0: int, cz0: int, ncx: int, ncz: int, erode: bool = False,
+                  features: bool = False, *, device):
+    """Generate the ``ncx x ncz``-chunk area at chunk coords (cx0, cz0) on ``device``.
+
+    Returns the dict of ``generate_area_fused`` with blocks shaped [ncz, ncx, 16, 16, 384].
+    """
+    if erode:
+        raise NotImplementedError(_EROSION_TODO)
+    if features:
+        raise NotImplementedError(_FEATURES_TODO)
+    pos_halo = chunk_positions(cx0 - 1, cz0 - 1, ncx + 2, ncz + 2, device=device)
+    out = generate_area_fused(pos_halo, ncx, ncz)
+    out["blocks"] = out["blocks"].reshape(ncz, ncx, 16, 16, 384)
+    return out

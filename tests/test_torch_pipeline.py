@@ -1,0 +1,153 @@
+"""The port's featureless slice vs the JAX package's, stage by stage and end to end.
+
+The JAX ``generate_area_fused(pos_halo, 1, 1, features=False)`` runs ONCE, eagerly in
+exact mode (``jax.disable_jit()`` + ``hashes.exact_scope(True)``: no XLA program is
+compiled), for the 1x1-chunk area at the golden chunk (592, -368) with its halo.  Its
+intermediates feed each port stage through ``tables.from_jax_outputs``, so every stage
+sees exactly the JAX stage's inputs.  Tolerances:
+- heightfield, weights, layers: max |diff| <= 1e-3 and >= 99.9% within 1e-5;
+- cave starts / ends / biomes: agreement >= 0.999;
+- blocks: agreement >= 0.9999.
+The CUDA kernels themselves run only on a GPU (``tests/test_torch_cuda.py``; on a
+card ``python3 chip_smoke.py`` checks them at full size).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mega_minecraft_tpu.ops import hashes as jh
+from mega_minecraft_tpu.terrain import heightfield as j_heightfield
+from mega_minecraft_tpu.terrain import pipeline as j_pipeline
+from mega_minecraft_tpu.world.blocks import Block
+from mega_minecraft_tpu_torch.app import generate_demo
+from mega_minecraft_tpu_torch.tables import from_jax_outputs
+from mega_minecraft_tpu_torch.terrain import caves, fill, heightfield, layers, pipeline
+
+ORIGIN_CHUNK = (592 // 16, -368 // 16)  # golden chunk (592, -368): cave-dense
+
+
+def _pos_halo():
+    return pipeline.chunk_positions(ORIGIN_CHUNK[0] - 1, ORIGIN_CHUNK[1] - 1, 3, 3, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_area():
+    """The JAX stage outputs (numpy): the fused area plus its halo'd stage-1 output,
+    recorded from inside the one generate_area_fused run (no second stage-1 run)."""
+    pos_halo = _pos_halo().numpy()
+    stage1 = j_heightfield.generate_heightfield
+    seen = []
+
+    def recording_stage1(*args, **kw):
+        seen.append(stage1(*args, **kw))
+        return seen[-1]
+
+    j_heightfield.generate_heightfield = recording_stage1
+    try:
+        with jax.disable_jit(), jh.exact_scope(True):
+            out = j_pipeline.generate_area_fused(jnp.asarray(pos_halo), 1, 1, features=False)
+            out = jax.tree_util.tree_map(np.asarray, out)
+    finally:
+        j_heightfield.generate_heightfield = stage1
+    (hf_h, w_h), = seen
+    out["hf_halo"], out["w_halo"], out["pos_halo"] = np.asarray(hf_h), np.asarray(w_h), pos_halo
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_in(jax_area):
+    """The JAX outputs as port tensors (stage inputs)."""
+    d = dict(jax_area)
+    halo = {"heightfield": d.pop("hf_halo"), "biome_weights": d.pop("w_halo"),
+            "pos_halo": d.pop("pos_halo")}
+    return {"halo": from_jax_outputs(halo, "cpu"), **from_jax_outputs(d, "cpu")}
+
+
+@pytest.fixture(scope="module")
+def port_area():
+    return pipeline.generate_area_fused(_pos_halo(), 1, 1)
+
+
+def _close(got, want):
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert d.max() <= 1e-3, d.max()
+    assert (d <= 1e-5).mean() >= 0.999, (d <= 1e-5).mean()
+
+
+def test_stage1_heightfield(jax_area, jax_in):
+    hf, w = heightfield.generate_heightfield(jax_in["halo"]["pos_halo"])
+    _close(hf, jax_area["hf_halo"])
+    _close(w, jax_area["w_halo"])
+
+
+def test_stage2_layers(jax_area, jax_in):
+    h = jax_in["halo"]
+    st = layers.layers_from_halo(h["heightfield"], h["biome_weights"], h["pos_halo"], 1, 1)
+    _close(st["layers"], jax_area["layers"])
+    np.testing.assert_array_equal(st["heightfield"].numpy(), jax_area["heightfield"])
+    np.testing.assert_array_equal(st["biome_weights"].numpy(), jax_area["biome_weights"])
+    np.testing.assert_array_equal(st["chunk_pos"].numpy(), jax_area["chunk_pos"])
+
+
+@pytest.mark.parametrize("key", ["starts", "ends", "bottom_biome", "top_biome"])
+def test_stage4_caves(jax_area, jax_in, key):
+    cv = caves.generate_caves(jax_in["heightfield"], jax_in["biome_weights"], jax_in["chunk_pos"])
+    assert cv[key].dtype == torch.int32
+    assert (cv[key].numpy() == jax_area["caves"][key]).mean() >= 0.999
+
+
+def test_stage5_fill(jax_area, jax_in):
+    c = jax_in["caves"]
+    blocks = fill.fill_chunks(jax_in["heightfield"], jax_in["biome_weights"], jax_in["layers"],
+                              c["starts"], c["ends"], jax_in["chunk_pos"])
+    assert blocks.dtype == torch.uint8 and blocks.shape == (1, 16, 16, 384)
+    assert (blocks.numpy() == jax_area["blocks"]).mean() >= 0.9999
+
+
+def test_slice_blocks(jax_area, port_area):
+    assert (port_area["blocks"].numpy() == jax_area["blocks"]).mean() >= 0.9999
+
+
+@pytest.mark.parametrize("key", ["heightfield", "biome_weights", "layers"])
+def test_slice_float_outputs(jax_area, port_area, key):
+    _close(port_area[key], jax_area[key])
+
+
+def test_slice_caves_and_origins(jax_area, port_area):
+    for key, want in jax_area["caves"].items():
+        assert (port_area["caves"][key].numpy() == want).mean() >= 0.999
+    np.testing.assert_array_equal(port_area["chunk_pos"].numpy(), jax_area["chunk_pos"])
+
+
+@pytest.mark.parametrize(
+    "call",
+    [lambda: pipeline.generate_area_fused(_pos_halo(), 1, 1, features=True),
+     lambda: pipeline.generate_area(0, 0, 1, 1, features=True, device="cpu"),
+     lambda: pipeline.generate_area(0, 0, 24, 24, erode=True, device="cpu"),
+     lambda: generate_demo.main(["--device", "cpu", "--features"]),
+     lambda: generate_demo.main(["--device", "cpu", "--render", "out.png"])],
+    ids=["fused-features", "area-features", "area-erode", "demo-features", "demo-render"],
+)
+def test_unported_options_raise(call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call()
+
+
+def test_demo_histogram_and_shade_map():
+    blocks = torch.zeros((1, 16, 16, 384), dtype=torch.uint8)
+    blocks[..., 0] = int(Block.BEDROCK)
+    blocks[..., 1:100] = int(Block.STONE)
+    lines = generate_demo.histogram_lines(blocks)
+    assert [ln.split()[0] for ln in lines] == ["AIR", "STONE", "BEDROCK"]
+    assert int(lines[2].split()[1]) == 256
+    hf = torch.arange(256, dtype=torch.float32).reshape(1, 16, 16)
+    shade = generate_demo.shade_map_lines(hf, 1)
+    assert len(shade) == 8 and all(len(s) == 2 + 16 for s in shade)
+    assert shade[0] == " " * 18  # the lowest rows are the lightest shade
+    assert shade[-1][-1] == generate_demo.SHADES[-1]
