@@ -7,25 +7,40 @@ Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
 Phases, each of which raises (non-zero exit) on failure:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the four kernels from ``mega_minecraft_tpu_torch/csrc`` with nvcc;
-  3. hold each kernel K1-K4 against its plain PyTorch version on the card, on the
-     5 golden chunks plus 2 seeded ones;
-  4. hold K1-K3 against ``tests/golden/golden_chunks.npz`` at tests/test_golden.py's
-     gates;
-  5. generate the featureless 5x5 bench area (the main path) through
-     ``pipeline.generate_area_fused`` with the launch counts reset just before and
-     read just after (exactly one launch per kernel); hold each kernel at the 5x5
-     shapes, and every output of the 5x5 run, against the plain versions on the
-     same inputs; then generate the 33x33 area (launch counts reset again) and check
-     that its middle 5x5 chunks equal the 5x5 run bit for bit and that every column
-     has bedrock at y = 0;
-  6. time the slice and every kernel (and its plain version at the 5x5 shapes)
-     warm with CUDA events.
+  2. build the kernels from ``mega_minecraft_tpu_torch/csrc`` with nvcc (one process per
+     source, started together);
+  3. hold each kernel K1-K8 (and K7's stream pre-kernel) against its plain PyTorch
+     version on the card, on the 5 golden chunks plus 2 seeded ones (K7: each chunk as
+     a 1x1 area);
+  4. hold K1-K3 against ``tests/golden/golden_chunks.npz`` and the featured 7x7 areas
+     around the four chunks of ``tests/golden/golden_blockgrid.npz`` against its
+     ``pre_*`` (fill + features) and ``post_*`` (after decorators) centre chunks, at
+     tests/test_golden.py's gates;
+  5. generate the FEATURED 5x5 bench area (the main path) through
+     ``pipeline.generate_area_fused(..., features=True)`` with the launch counts reset
+     just before and read just after (exactly one launch per kernel); hold each kernel
+     at the 5x5 shapes, and every output of the 5x5 run, against the plain versions on
+     the same inputs; the featureless 5x5 run likewise, which must equal the middle of
+     the featureless 33x33 run bit for bit; then the featured 33x33 area, whose middle
+     5x5 chunks must equal those of a featured 11x11 run (both see full 49-chunk
+     neighbourhoods), and bedrock at y = 0 in every column;
+  6. time the slices, the feature half and every kernel (and its plain version at the
+     5x5 shapes) warm with CUDA events, and compute every kernel's bound.
 On the card, kernel and plain version run the same libm, so integer outputs must be
 equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5.
-The second-to-last line is the kernels' JSON record (launch counts of the 5x5 run,
-max |diff| over phases 3 and 5), the last the device record.  ``--ptxas`` also
-prints each kernel's registers / spills (nvcc -Xptxas -v).
+The second-to-last line is the kernels' JSON record (launch counts of the featured 5x5
+run, max |diff| over phases 3 and 5, times and bounds at the 5x5 shapes), the last the
+device record.  ``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas
+-v).
+
+A kernel's bound is the least time the card could take for the same work: the larger of
+the bytes it must move (each input read once, each output written once; of the
+placement lists only the valid entries) over 3.35 TB/s and its f32 operations over
+67 TFLOP/s (the H100 SXM's published rates).  Operations are what the function needs on
+this run's data, with the unit costs below (how many biomes have weight, how many blocks
+reach the cave-biome noise, which voxels lie in a placement's window and height bounds
+and pass its terrain test), not what a kernel's design spends; they are estimates good
+to a few tens of percent.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +69,73 @@ KERNELS = {  # name -> (source, the JAX program it replaces)
               "mega_minecraft_tpu/terrain/caves.py:175"),
     "fill": ("mega_minecraft_tpu_torch/csrc/fill.cu",
              "mega_minecraft_tpu/terrain/fill.py:283"),
+    "placements": ("mega_minecraft_tpu_torch/csrc/placements.cu",
+                   "mega_minecraft_tpu/terrain/feature_placement.py:92"),
+    "compact_placements": ("mega_minecraft_tpu_torch/csrc/placements.cu",
+                           "mega_minecraft_tpu/terrain/feature_placement.py:256"),
+    "feature_streams": ("mega_minecraft_tpu_torch/csrc/features.cu",
+                        "mega_minecraft_tpu/terrain/features_sdf.py:1014"),
+    "features": ("mega_minecraft_tpu_torch/csrc/features.cu",
+                 "mega_minecraft_tpu/terrain/features.py:173"),
+    "decorators": ("mega_minecraft_tpu_torch/csrc/decorators.cu",
+                   "mega_minecraft_tpu/terrain/decorators.py:53"),
 }
+GEN_KERNELS = ("heightfield", "layers", "caves", "fill")  # the featureless slice
+
+#: block-grid golden gates (tests/test_golden.py:254-255)
+BLOCKGRID = ROOT / "tests" / "golden" / "golden_blockgrid.npz"
+BLOCKGRID_GATES = {(0, 0): 0.9999, (592, -368): 0.9999, (4096, 4096): 0.9993, (-160, -160): 0.998}
+
+# -- the card's published rates (H100 SXM) and unit costs in f32 operations, counted off
+# csrc/mmt_math.cuh (each add, multiply, divide, floor, compare-select is one)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SINHASH = 455  # sin_cr: 4 two_prod (17), 7 two_sum (6), 9 ds_mul (27), 7 ds_add (14), ~40 more
+SIMPLEX2 = 155
+SIMPLEX3 = 400
+WORLEY2 = 9 * (2 * (SINHASH + 4) + 12)
+WORLEY3 = 27 * (3 * (SINHASH + 6) + 15)
+
+
+def fbm2_ops(octaves):
+    return octaves * (SIMPLEX2 + 5)
+
+
+def fbm3_ops(octaves):
+    return octaves * (SIMPLEX3 + 7)
+
+
+CAVE_BIOME = 3 * fbm3_ops(3) + 4 * fbm2_ops(3) + 2 * SIMPLEX3 + 130
+#: per-biome height formula (heightfield.cu biome_height), as (simplex2 count, worley2 count)
+HEIGHT_FORMULA = {"ARCHIPELAGO": (9, 0), "SAVANNA": (16, 2), "MESA": (15, 1), "SPARSE_DESERT": (6, 1),
+                  "TIANZI_MOUNTAINS": (9, 2), "CRYSTALS": (6, 1), "MOUNTAINS": (15, 0),
+                  "LUSH_BIRCH_FOREST": (6, 0), "JUNGLE": (6, 0)}  # every other biome: (5, 0)
+#: rough f32 operations of one SDF evaluation by feature id (features_sdf.cuh)
+SDF_OPS_SURFACE = {1: 6, 2: 900, 3: 10, 4: 900, 5: 400, 6: 12000, 7: 3000, 8: 120, 9: 40, 10: 60,
+                   11: 700, 12: 400, 13: 80, 14: 20, 15: 30, 16: 1500, 17: 1200, 18: 1200, 19: 900,
+                   20: 120}
+SDF_OPS_CAVE = {1: 4, 2: 4, 3: 20, 4: 250, 5: 40, 6: 40, 7: 60, 8: 250, 9: 1700}
+# K7's own list walk (a diagnostic, not part of its bound): per column and visible list
+# entry the rank search, loads and window compares; per voxel and entry whose window holds
+# its column the loads and bounds compares
+WINDOW_TEST_OPS = 12
+LIST_WALK_OPS = 8
+
+
+def nbytes(*tensors):
+    total = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) from the bytes a kernel must move and its f32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class SmokeFailure(AssertionError):
@@ -120,6 +202,129 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def check_dict_equal(prefix, got, want):
+    """Every tensor of a (nested) dict of integer / bool outputs equal; max |diff|."""
+    check(sorted(got) == sorted(want), f"{prefix}: keys {sorted(got)} != {sorted(want)}")
+    mx = 0.0
+    for k in want:
+        if isinstance(want[k], dict):
+            mx = max(mx, check_dict_equal(f"{prefix} {k}", got[k], want[k]))
+        else:
+            mx = max(mx, check_equal(f"{prefix} {k}", got[k], want[k]))
+    return mx
+
+
+def op_counts(n, pos_halo, w_halo, out, lists, names):
+    """(bytes, f32 operations) each kernel needs for the n x n area of this run."""
+    from mega_minecraft_tpu_torch.kernels import CAVE_FIELDS, STREAM_LEN, SURFACE_FIELDS
+    from mega_minecraft_tpu_torch.terrain import features
+    from mega_minecraft_tpu_torch.world import biomes as bio
+    from mega_minecraft_tpu_torch.world.blocks import Block
+
+    B, H = n * n, (n + 2) * (n + 2)
+    cols = B * 256
+    cv = out["caves"]
+    res = {}
+    # K1: biome noise (11 simplex2), 24 weights, then one height formula per biome with weight
+    per_biome = (w_halo > 0).sum(dim=(0, 2, 3)).tolist()
+    k1 = H * 256 * (11 * SIMPLEX2 + 150 + 24 * 6)
+    for b in bio.Biome:
+        s2, w2 = HEIGHT_FORMULA.get(b.name, (5, 0))
+        k1 += per_biome[int(b)] * (s2 * (SIMPLEX2 + 5) + w2 * WORLEY2 + 3)
+    res["heightfield"] = (nbytes(pos_halo) + H * 256 * 4 * 25, k1)
+    # K2: 24 -> 20 contraction, 11 five-octave fBm, 8 slope-limited layers
+    in2 = H * 256 * 4 * 25 + nbytes(pos_halo)
+    out2 = nbytes(out["layers"], out["heightfield"], out["biome_weights"], out["chunk_pos"])
+    res["layers"] = (in2 + out2, cols * (960 + 11 * fbm2_ops(5) + 400))
+    # K3: the carve test on 144 of 384 blocks per column, the ravine per column, the cave
+    # biome at the valid layer edges of this run
+    carve = 3 * fbm3_ops(5) + WORLEY3 + 27 * 10 + 2 * fbm3_ops(4) + 40
+    ravine = 16 * (SIMPLEX2 + 5) + WORLEY2 + 500
+    edges = int((cv["starts"] != 384).sum()) + int((cv["ends"] != 384).sum())
+    res["caves"] = (nbytes(out["heightfield"], out["biome_weights"], out["chunk_pos"], cv),
+                    cols * 144 * carve + cols * ravine + edges * CAVE_BIOME)
+    # K4: per block the biome pick, the cave scan and the cascade; the cave-biome noise only
+    # for this run's solid stone-like blocks below y = 192 (counted from the featureless
+    # blocks: the stone family and what the cave biomes turn it into); 7 fields per column
+    fam = [Block.STONE, Block.DEEPSLATE, Block.BLACKSTONE, Block.COBBLESTONE,
+           Block.COBBLED_DEEPSLATE, Block.QUARTZ, Block.CLAY, Block.MOSS, Block.WARPED_DEEPSLATE,
+           Block.WARPED_BLACKSTONE, Block.AMBER_DEEPSLATE, Block.AMBER_BLACKSTONE]
+    low = out["base_blocks"][..., :192]
+    stone_like = int(torch.isin(low, torch.tensor([int(b) for b in fam], dtype=low.dtype,
+                                            device=low.device)).sum())
+    lush = int(((low == int(Block.CLAY)) | (low == int(Block.MOSS))).sum())
+    k4 = B * 98304 * 490 + cols * 7 * fbm2_ops(3) + stone_like * CAVE_BIOME \
+        + lush * (SIMPLEX3 + 3 * fbm3_ops(3) + WORLEY3)
+    res["fill"] = (nbytes(out["heightfield"], out["biome_weights"], out["layers"], cv["starts"],
+                          cv["ends"], out["chunk_pos"], out["base_blocks"]), k4)
+    # K5: the layer walk and biome pick per column, two sin-hashes per placed feature
+    placed = int(lists["surface"]["count"].sum()) + int(lists["cave"]["count"].sum())
+    grids = nbytes(out["placement_grids"])  # K5's outputs, K6's inputs
+    res["placements"] = (nbytes(out["heightfield"], out["biome_weights"], out["layers"], cv,
+                                out["chunk_pos"]) + grids, cols * 840 + placed * 2 * SINHASH)
+    res["compact_placements"] = (grids + nbytes(lists, out["chunk_pos"]), cols * 65 * 4)
+    # the stream pre-kernel and K7 need only the valid list entries (the first
+    # min(count, list width) of each chunk), whatever the kernels' design touches
+    valid = {kind: torch.minimum(lists[kind]["count"], torch.tensor(
+        lists[kind]["feature"].shape[1], device=lists[kind]["count"].device)) for kind in lists}
+    n_valid = {kind: int(v.sum()) for kind, v in valid.items()}
+    n_entries = n_valid["surface"] + n_valid["cave"]
+    counts_b = nbytes(lists["surface"]["count"], lists["cave"]["count"])
+    stream_b = n_entries * STREAM_LEN * 4
+    # streams: x, y, z read and 64 f32 draws written per valid entry; ~4 operations a draw
+    res["feature_streams"] = (n_entries * 3 * 4 + counts_b + stream_b, n_entries * STREAM_LEN * 4)
+    # K7: the blocks read and written once, the valid entries' fields and streams read once;
+    # one SDF evaluation (per-type cost table) for every voxel that lies in a valid
+    # placement's XZ window and height bounds and whose terrain block passes the placement's
+    # test (AIR, or any block where it replaces).  Evaluations behind an earlier placement's
+    # hit are still counted (overlaps are rare).  The kernel's walk over its gathered lists is
+    # its own design's cost: printed below, not part of the bound.
+    area = (out["base_blocks"].reshape(n, n, 16, 16, 384).permute(0, 2, 1, 3, 4)
+            .reshape(n * 16, n * 16, 384))
+    air_below = torch.zeros((n * 16, n * 16, 385), dtype=torch.int16, device=area.device)
+    air_below[..., 1:] = torch.cumsum((area == int(Block.AIR)).to(torch.int16), -1, dtype=torch.int16)
+    air_below = air_below.cpu().numpy()  # [z, x, y]: AIR blocks of the column below y
+    vis = 0
+    tot = (valid["surface"] + valid["cave"]).reshape(n, n).cpu()
+    for vz in range(n):
+        for vx in range(n):
+            vis += int(tot[max(vz - 3, 0) : vz + 4, max(vx - 3, 0) : vx + 4].sum())
+    sdf_ops = walk_ops = sdf_voxels = 0
+    ox, oz = (int(v) for v in out["chunk_pos"][0])
+    for kind, table, cave in (("surface", SDF_OPS_SURFACE, False), ("cave", SDF_OPS_CAVE, True)):
+        L = {k: v.cpu().numpy() for k, v in lists[kind].items()}
+        half = features.window_half_widths(cave)
+        bounds_t = (features.fd.CAVE_FEATURE_HEIGHT_BOUNDS if cave else features.fd.FEATURE_HEIGHT_BOUNDS)
+        for b, k in zip(*(L["feature"] > 0).nonzero()):
+            f = int(L["feature"][b, k])
+            px, py, pz = (int(L[c][b, k]) for c in "xyz")
+            h = int(L["height"][b, k]) if cave else 0
+            x0, x1 = max(px - ox - int(half[f, 0]), 0), min(px - ox + int(half[f, 1]), n * 16 - 1)
+            z0, z1 = max(pz - oz - int(half[f, 0]), 0), min(pz - oz + int(half[f, 1]), n * 16 - 1)
+            y0, y1 = max(py + int(bounds_t[f, 0]), 0), min(py + h + int(bounds_t[f, 1]), 383)
+            if x0 > x1 or z0 > z1 or y0 > y1:
+                continue
+            walk_ops += (x1 - x0 + 1) * (z1 - z0 + 1) * 384 * LIST_WALK_OPS
+            if int(L["replace"][b, k]):
+                voxels = (x1 - x0 + 1) * (z1 - z0 + 1) * (y1 - y0 + 1)
+            else:
+                win = air_below[z0 : z1 + 1, x0 : x1 + 1]
+                voxels = int((win[..., y1 + 1].astype(np.int64) - win[..., y0]).sum())
+            sdf_voxels += voxels
+            sdf_ops += voxels * table[f]
+    walk_ops += vis * 256 * WINDOW_TEST_OPS
+    print(f"    K7 at {n}x{n}: {n_entries} valid list entries, {sdf_voxels} SDF evaluations needed "
+          f"= {sdf_ops:.4g} operations (the bound's); the kernel's own list walk, not in the "
+          f"bound: {walk_ops:.4g} operations")
+    fields_b = n_valid["surface"] * len(SURFACE_FIELDS) * 4 + n_valid["cave"] * len(CAVE_FIELDS) * 4
+    res["features"] = (2 * B * 98304 + fields_b + counts_b + stream_b + nbytes(out["chunk_pos"]),
+                       sdf_ops)
+    res["decorators"] = (2 * B * 98304 + nbytes(out["heightfield"], out["biome_weights"],
+                                                cv["starts"], cv["ends"], cv["bottom_biome"],
+                                                out["chunk_pos"]), cols * 400)
+    return {k: res[k] for k in names}
+
+
 def main(argv):
     p = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port once on one GPU.")
     p.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v output")
@@ -128,14 +333,20 @@ def main(argv):
         raise SmokeFailure("torch.cuda.is_available() is false: chip_smoke needs a CUDA GPU")
 
     from mega_minecraft_tpu_torch import kernels
-    from mega_minecraft_tpu_torch.app.generate_demo import histogram_lines
+    from mega_minecraft_tpu_torch.app.generate_demo import FEATURE_BLOCKS, histogram_lines
     from mega_minecraft_tpu_torch.kernels import _build
-    from mega_minecraft_tpu_torch.terrain import caves, fill, gather, heightfield, layers, pipeline
+    from mega_minecraft_tpu_torch.terrain import (caves, decorators, feature_placement as fp,
+                                                  features, fill, gather, heightfield, layers,
+                                                  pipeline)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def stamp(msg):
+        print(f"[{time.perf_counter() - t_start:6.1f} s] {msg}", flush=True)
 
     # -- 1. device --------------------------------------------------------------------
     smi = subprocess.run(
@@ -148,15 +359,58 @@ def main(argv):
     # -- 2. build -----------------------------------------------------------------------
     _, build_s, built = _build.build(verbose=args.ptxas)
     _build.load()
-    print(f"phase 2: kernels built in {build_s:.1f} s (nvcc ran: {built})")
+    stamp(f"phase 2: kernels built in {build_s:.1f} s (nvcc ran: {built})")
 
     rng = np.random.default_rng(SEED)
     seeded = [tuple(int(v) * 16 for v in rng.integers(-4096, 4096, 2)) for _ in range(2)]
     origins = GOLDEN_CHUNKS + seeded
     err = {}
 
+    def stage_checks(tag, hf_in, w_in, ls_in, cv_p, pos_in, bl_p, areas):
+        """K5-K8 and the stream pre-kernel against their plain versions on one batch of
+        chunks; ``areas`` lists (first chunk, ncx, ncz) of the areas K7 is applied over.
+        Updates ``err``; returns the plain chain's (lists, featured blocks, final blocks)."""
+        args5 = (hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], cv_p["bottom_biome"],
+                 cv_p["top_biome"], pos_in)
+        pl_p = fp.generate_placements_plain(*args5)
+        e5 = check_dict_equal(f"{tag} K5", kernels.placements(*args5), pl_p)
+        lists_p = fp.compact_placements_plain(pl_p, pos_in)
+        e6 = check_dict_equal(f"{tag} K6", kernels.compact_placements(pl_p, pos_in), lists_p)
+        print(f"  {tag} placements per chunk: surface {lists_p['surface']['count'].tolist()}, "
+              f"cave {lists_p['cave']['count'].tolist()}")
+        st_k = kernels.feature_streams(lists_p["surface"], lists_p["cave"])
+        st_p = features.draw_streams_plain(lists_p["surface"], lists_p["cave"])
+        es = 0.0
+        for name, got, want in zip(("surface", "cave"), st_k, st_p):
+            d = float((got - want).abs().max())
+            print(f"  {tag} streams {name}: max |diff| {d:g}")
+            check(d == 0.0, f"{tag} streams {name}: differ from the plain version by {d}")
+            es = max(es, d)
+        feat_p, e7 = [], 0.0
+        for i0, ncx, ncz in areas:
+            nb = ncx * ncz
+            sub = {kind: {k: v[i0 : i0 + nb].contiguous() for k, v in d.items()}
+                   for kind, d in lists_p.items()}
+            a = (bl_p[i0 : i0 + nb].contiguous(), sub["surface"], sub["cave"])
+            want = features.apply_features_area_plain(*a, pos_in[i0 : i0 + nb], ncx, ncz)
+            got = kernels.features(*a, st_p[0][i0 : i0 + nb].contiguous(),
+                                   st_p[1][i0 : i0 + nb].contiguous(),
+                                   pos_in[i0 : i0 + nb].contiguous(), ncx, ncz)
+            n_feat = int((want != a[0]).sum())
+            e7 = max(e7, check_equal(f"{tag} K7 area@{i0} ({n_feat} feature blocks)", got, want))
+            feat_p.append(want)
+        feat_p = torch.cat(feat_p)
+        args8 = (feat_p, hf_in, w_in, cv_p["starts"], cv_p["ends"], cv_p["bottom_biome"], pos_in)
+        dec_p = decorators.place_decorators_batch_plain(*args8)
+        n_dec = int((dec_p != feat_p).sum())
+        e8 = check_equal(f"{tag} K8 ({n_dec} decorator blocks)", kernels.decorators(*args8), dec_p)
+        for k, v in (("placements", e5), ("compact_placements", e6), ("feature_streams", es),
+                     ("features", e7), ("decorators", e8)):
+            err[k] = max(err.get(k, 0.0), v)
+        return lists_p, feat_p, dec_p
+
     # -- 3. kernels vs their plain versions, same inputs ---------------------------------
-    print(f"phase 3: kernels vs plain versions on {origins}")
+    stamp(f"phase 3: kernels vs plain versions on {origins}")
     pos7 = torch.tensor(origins, dtype=torch.int32, device=dev)
     hf_k, w_k = kernels.heightfield(pos7)
     hf_p, w_p = heightfield.generate_heightfield_plain(pos7)
@@ -183,8 +437,70 @@ def main(argv):
     bl_p = fill.fill_chunks_plain(hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], pos_in)
     err["fill"] = check_equal("K4 blocks", bl_k, bl_p)
 
+    stage_checks("7 chunks", hf_in, w_in, ls_in, cv_p, pos_in, bl_p,
+                 [(i, 1, 1) for i in range(len(origins))])
+
+    # the caps, which real terrain never reaches: a dense synthetic grid that overflows
+    # K6's 1,024-entry cave list, and K7 on a 3x1 strip of stone chunks whose first chunk
+    # claims the whole 2,048-entry gather of its own consumer
+    print("  synthetic: K6 list overflow, K7 gather cap and cross-chunk priority")
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    r = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)  # noqa: E731
+    coin = lambda p_, *shape: torch.rand(shape, generator=g) < p_  # noqa: E731
+    dense = {
+        "surface_feature": r(0, 3, 2, 16, 16), "surface_y": r(60, 200, 2, 16, 16),
+        "surface_replace": coin(0.5, 2, 16, 16),
+        "cave_feature": r(1, 10, 2, 16, 16, 32, 2) * coin(0.12, 2, 16, 16, 32, 2),
+        "cave_y": r(1, 140, 2, 16, 16, 32), "cave_height": r(1, 40, 2, 16, 16, 32),
+        "cave_replace": coin(0.5, 2, 16, 16, 32, 2),
+    }
+    dense = {k: v.to(dev) for k, v in dense.items()}
+    pos2 = torch.tensor([[32, -48], [-4096, 160]], dtype=torch.int32, device=dev)
+    want = fp.compact_placements_plain(dense, pos2)
+    check(int(want["cave"]["count"].min()) > fp.CHUNK_CAVE_FEATURE_CAP, "the dense grid does not overflow")
+    err["compact_placements"] = max(err["compact_placements"], check_dict_equal(
+        "synthetic K6", kernels.compact_placements(dense, pos2), want))
+
+    F, C, Bk = features.fd.Feature, features.fd.CaveFeature, fill.Block
+    strip = torch.zeros((3, 16, 16, 384), dtype=torch.uint8, device=dev)
+    strip[..., :146] = int(Bk.STONE)
+    strip[..., 60:91] = int(Bk.AIR)  # a cave layer
+    pos3 = torch.tensor([[0, 0], [16, 0], [32, 0]], dtype=torch.int32, device=dev)
+
+    def synthetic_lists(surface_rows, cave_rows, surface_count=None):
+        out = {}
+        for kind, rows, fields, cap in (("surface", surface_rows, kernels.SURFACE_FIELDS, 256),
+                                        ("cave", cave_rows, kernels.CAVE_FIELDS, 1024)):
+            d = {k: torch.zeros((3, cap), dtype=torch.int32) for k in fields}
+            for b, entries in enumerate(rows):
+                for slot, row in enumerate(entries):
+                    for k, v in zip(fields, row):
+                        d[k][b, slot] = int(v)
+            d["count"] = (d["feature"] > 0).sum(-1).to(torch.int32)
+            out[kind] = {k: v.to(dev) for k, v in d.items()}
+        if surface_count is not None:
+            out["surface"]["count"] = torch.tensor(surface_count, dtype=torch.int32, device=dev)
+        return out
+
+    surface_rows = [[(F.KELP, 14, 100, 8, 1), (F.SPHERE, 15, 102, 8, 1), (F.SPHERE, 8, 144, 8, 0)],
+                    [(F.KELP, 16, 100, 8, 1), (F.SPHERE, 17, 200, 8, 0), (F.PINE_TREE, 30, 146, 3, 0)],
+                    [(F.SPHERE, 33, 200, 8, 0)]]
+    cave_rows = [[(C.TEST_GLOWSTONE_PILLAR, 8, 60, 8, 0, 30), (C.STORMLIGHT_SPHERE, 15, 61, 12, 1, 29)],
+                 [(C.CAVE_VINE, 20, 61, 5, 0, 29)], [(C.AMBER_FUNGUS, 35, 61, 9, 0, 29)]]
+    for tag, count in (("free", None), ("capped", [fp.MAX_GATHERED_FEATURES, 3, 1])):
+        sl = synthetic_lists(surface_rows, cave_rows, count)
+        want = features.apply_features_area_plain(strip, sl["surface"], sl["cave"], pos3, 3, 1)
+        got = features.apply_features_area(strip, sl["surface"], sl["cave"], pos3, 3, 1)
+        err["features"] = max(err["features"], check_equal(f"synthetic K7 {tag}", got, want))
+        # x = 14 (chunk 0) lies in the sphere chunk 1 lists at x = 17: visible unless chunk 0's
+        # own count fills its gather
+        seen = int(got[0, 8, 14, 200]) == int(Bk.GRAVEL)
+        check(seen == (count is None), f"synthetic K7 {tag}: the neighbour's sphere is "
+              f"{'visible' if seen else 'hidden'} in chunk 0")
+        check(int(got[1, 8, 1, 200]) == int(Bk.GRAVEL), f"synthetic K7 {tag}: chunk 1 lost its own sphere")
+
     # -- 4. goldens at test_golden.py's gates ---------------------------------------------
-    print("phase 4: K1-K3 vs tests/golden/golden_chunks.npz")
+    stamp("phase 4: K1-K3 vs tests/golden/golden_chunks.npz")
     g = np.load(GOLDEN)
     gpos = torch.tensor(GOLDEN_CHUNKS, dtype=torch.int32, device=dev)
     hf_g, w_g = kernels.heightfield(gpos)
@@ -227,17 +543,53 @@ def main(argv):
             msg += f" biomes {agree:.4f}"
         print(msg)
 
+    stamp("phase 4b: featured 7x7 areas vs tests/golden/golden_blockgrid.npz (pre_ / post_)")
+    gb = np.load(BLOCKGRID)
+    for (cx, cz), gate in BLOCKGRID_GATES.items():
+        area = pipeline.generate_area(cx // 16 - 3, cz // 16 - 3, 7, 7, features=True, device=dev)
+        # the same area before decorators: the featureless slice with the run's lists applied
+        base = pipeline.generate_area_fused(
+            pipeline.chunk_positions(cx // 16 - 4, cz // 16 - 4, 9, 9, device=dev), 7, 7)
+        lists = area["placements"]
+        pre = features.apply_features_area(base["blocks"], lists["surface"], lists["cave"],
+                                           base["chunk_pos"], 7, 7)
+        cvb = base["caves"]
+        again = decorators.place_decorators_batch(
+            pre, base["heightfield"], base["biome_weights"], cvb["starts"], cvb["ends"],
+            cvb["bottom_biome"], base["chunk_pos"])
+        check(torch.equal(again.reshape(7, 7, 16, 16, 384), area["blocks"]),
+              f"({cx},{cz}): the stages chained by hand differ from generate_area")
+        got_pre = pre.reshape(7, 7, 16, 16, 384)[3, 3].cpu().numpy()
+        got_post = area["blocks"][3, 3].cpu().numpy()
+        a_pre = float((got_pre == gb[f"pre_{cx}_{cz}"]).mean())
+        a_post = float((got_post == gb[f"post_{cx}_{cz}"]).mean())
+        n_feat = int((got_pre != base["blocks"].reshape(7, 7, 16, 16, 384)[3, 3].cpu().numpy()).sum())
+        print(f"  ({cx},{cz}): pre {a_pre:.6f} post {a_post:.6f} (gate {gate}); "
+              f"{n_feat} feature and {int((got_post != got_pre).sum())} decorator blocks in the chunk")
+        check(a_pre >= gate, f"block grid before decorators ({cx},{cz}): {a_pre} < {gate}")
+        check(a_post >= gate, f"block grid after decorators ({cx},{cz}): {a_post} < {gate}")
+
     # -- 5. the slice through the pipeline's entry point -----------------------------------
-    print("phase 5: the featureless 5x5 bench area through pipeline.generate_area_fused")
+    stamp("phase 5: the featured 5x5 bench area through pipeline.generate_area_fused")
     pos5 = pipeline.chunk_positions(-1, -1, 7, 7, device=dev)  # bench.py's 5x5 + halo
     kernels.reset_launch_counts()
-    out5 = pipeline.generate_area_fused(pos5, 5, 5)
+    out5 = pipeline.generate_area_fused(pos5, 5, 5, features=True)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    print(f"  launch counts of the 5x5 run: {launches}")
+    print(f"  launch counts of the featured 5x5 run: {launches}")
     for name in KERNELS:
         check(launches[name] == 1, f"kernel {name}: {launches[name]} launches in the 5x5 run, not 1")
     check_area(5, out5, int(fill.Block.BEDROCK))
+
+    kernels.reset_launch_counts()
+    base5 = pipeline.generate_area_fused(pos5, 5, 5)
+    torch.cuda.synchronize()
+    launches_base = kernels.launch_counts()
+    for name in KERNELS:
+        want = 1 if name in GEN_KERNELS else 0
+        check(launches_base[name] == want, f"kernel {name}: {launches_base[name]} launches in the "
+              f"featureless 5x5 run, not {want}")
+    check_area(5, base5, int(fill.Block.BEDROCK))
 
     print("  each kernel at the 5x5 shapes vs its plain version, same inputs:")
     hf_p, w_p = heightfield.generate_heightfield_plain(pos5)
@@ -256,41 +608,79 @@ def main(argv):
     in4 = (*in3[:2], st_p["layers"], cv_p["starts"], cv_p["ends"], in3[2])
     plain5 = fill.fill_chunks_plain(*in4)
     err["fill"] = max(err["fill"], check_equal("K4 blocks", kernels.fill(*in4), plain5))
+    lists_p, feat_p, dec_p = stage_checks("5x5", in3[0], in3[1], st_p["layers"], cv_p, in3[2],
+                                          plain5, [(0, 5, 5)])
 
-    print("  every output of the 5x5 run vs the plain chain:")
+    print("  every output of the 5x5 runs vs the plain chain:")
     for k in ("heightfield", "biome_weights", "layers"):
         check_close(k, out5[k], st_p[k])
     check_equal("chunk_pos", out5["chunk_pos"], st_p["chunk_pos"])
     for k in cv_p:
         check_equal(f"caves {k}", out5["caves"][k], cv_p[k])
-    check_equal("blocks", out5["blocks"], plain5)
-    print("  5x5 block histogram (top 14):")
+    check_equal("featureless blocks", base5["blocks"], plain5)
+    check_dict_equal("placements", out5["placements"], lists_p)
+    check_equal("featured blocks", out5["blocks"], dec_p)
+    n_feat, n_dec = int((feat_p != plain5).sum()), int((dec_p != feat_p).sum())
+    check(n_feat > 0 and n_dec > 0, "the featured 5x5 area holds no feature or no decorator block")
+    print(f"  5x5 block histogram (top 14), then its {n_feat} feature and {n_dec} decorator blocks:")
     print("\n".join(histogram_lines(out5["blocks"])))
+    print("\n".join(histogram_lines(out5["blocks"], only=FEATURE_BLOCKS)))
 
-    print("phase 5b: the 33x33 area (the reference's initial drain)")
+    stamp("phase 5b: the 33x33 area (the reference's initial drain), featureless and featured")
     pos33 = pipeline.chunk_positions(-17, -17, 35, 35, device=dev)
     kernels.reset_launch_counts()
-    out33 = pipeline.generate_area_fused(pos33, 33, 33)
+    base33 = pipeline.generate_area_fused(pos33, 33, 33)
+    torch.cuda.synchronize()
+    check_area(33, base33, int(fill.Block.BEDROCK))
+    inner = base33["blocks"].reshape(33, 33, 16, 16, 384)[16:21, 16:21]
+    check(torch.equal(inner, base5["blocks"].reshape(5, 5, 16, 16, 384)),
+          "featureless 5x5 chunks differ from the same chunks of the 33x33 run")
+    print("  featureless 5x5 == 33x33[16:21, 16:21] bit for bit")
+    kernels.reset_launch_counts()
+    out33 = pipeline.generate_area_fused(pos33, 33, 33, features=True)
     torch.cuda.synchronize()
     launches33 = kernels.launch_counts()
-    print(f"  launch counts of the 33x33 run: {launches33}")
+    print(f"  launch counts of the featured 33x33 run: {launches33}")
     for name in KERNELS:
         check(launches33[name] == 1, f"kernel {name}: {launches33[name]} launches in the 33x33 run, not 1")
     check_area(33, out33, int(fill.Block.BEDROCK))
-    inner = out33["blocks"].reshape(33, 33, 16, 16, 384)[16:21, 16:21]
-    check(torch.equal(inner, out5["blocks"].reshape(5, 5, 16, 16, 384)),
-          "5x5 chunks differ from the same chunks of the 33x33 run")
-    print("  5x5 == 33x33[16:21, 16:21] bit for bit; bedrock at y=0 in every column of both")
+    # a featured 5x5 area lacks the placements of chunks beyond its edge, so the featured
+    # cross-size check compares two areas that both hold every inner chunk's 49 sources
+    out11 = pipeline.generate_area_fused(pipeline.chunk_positions(-4, -4, 13, 13, device=dev), 11, 11,
+                                         features=True)
+    mid33 = out33["blocks"].reshape(33, 33, 16, 16, 384)[16:21, 16:21]
+    mid11 = out11["blocks"].reshape(11, 11, 16, 16, 384)[3:8, 3:8]
+    check(torch.equal(out11["chunk_pos"].reshape(11, 11, 2)[3:8, 3:8],
+                      out33["chunk_pos"].reshape(33, 33, 2)[16:21, 16:21]), "11x11 / 33x33 origins")
+    check(torch.equal(mid33, mid11), "featured 33x33[16:21, 16:21] differs from 11x11[3:8, 3:8]")
+    n_edge = int((mid33 != out5["blocks"].reshape(5, 5, 16, 16, 384)).sum())
+    print(f"  featured 33x33[16:21, 16:21] == 11x11[3:8, 3:8] bit for bit ({n_edge} voxels of it "
+          f"differ from the 5x5 run, which lacks its neighbours' placements); "
+          f"33x33 placements: {int(out33['placements']['surface']['count'].sum())} surface, "
+          f"{int(out33['placements']['cave']['count'].sum())} cave "
+          f"(max per chunk {int(out33['placements']['surface']['count'].max())} / "
+          f"{int(out33['placements']['cave']['count'].max())})")
+    del out11, mid11, mid33, inner
 
     # -- 6. timing (warm, CUDA events) ----------------------------------------------------
-    print("phase 6: timing")
-    times = {}
-    for n, pos in ((5, pos5), (33, pos33)):
+    stamp("phase 6: timing")
+    times, bounds = {}, {}
+    for n, pos, out in ((5, pos5, out5), (33, pos33, out33)):
         hf, w = kernels.heightfield(pos)
         st = kernels.layers(hf, w, pos, n, n)
         cv = kernels.caves(st["heightfield"], st["biome_weights"], st["chunk_pos"])
         args_fill = (st["heightfield"], st["biome_weights"], st["layers"], cv["starts"],
                      cv["ends"], st["chunk_pos"])
+        base_blocks = kernels.fill(*args_fill)
+        args5 = (*args_fill[:3], cv["starts"], cv["ends"], cv["bottom_biome"], cv["top_biome"],
+                 st["chunk_pos"])
+        grids = kernels.placements(*args5)
+        lists = kernels.compact_placements(grids, st["chunk_pos"])
+        streams = kernels.feature_streams(lists["surface"], lists["cave"])
+        args7 = (base_blocks, lists["surface"], lists["cave"], *streams, st["chunk_pos"], n, n)
+        featured = kernels.features(*args7)
+        args8 = (featured, st["heightfield"], st["biome_weights"], cv["starts"], cv["ends"],
+                 cv["bottom_biome"], st["chunk_pos"])
         calls = {
             "heightfield": (lambda: kernels.heightfield(pos),
                             lambda: heightfield.generate_heightfield_plain(pos)),
@@ -300,33 +690,58 @@ def main(argv):
                       lambda: caves.generate_caves_plain(*args_fill[:2], args_fill[5])),
             "fill": (lambda: kernels.fill(*args_fill),
                      lambda: fill.fill_chunks_plain(*args_fill)),
+            "placements": (lambda: kernels.placements(*args5),
+                           lambda: fp.generate_placements_plain(*args5)),
+            "compact_placements": (lambda: kernels.compact_placements(grids, st["chunk_pos"]),
+                                   lambda: fp.compact_placements_plain(grids, st["chunk_pos"])),
+            "feature_streams": (lambda: kernels.feature_streams(lists["surface"], lists["cave"]),
+                                lambda: features.draw_streams_plain(lists["surface"], lists["cave"])),
+            "features": (lambda: kernels.features(*args7),
+                         lambda: features.apply_features_area_plain(*args7[:3], st["chunk_pos"], n, n)),
+            "decorators": (lambda: kernels.decorators(*args8),
+                           lambda: decorators.place_decorators_batch_plain(*args8)),
         }
         reps = 20 if n == 5 else 3
         for name, (kern, plain) in calls.items():
             if n == 5:  # turns: plain, kernel, kernel, plain
-                p1 = cuda_ms(plain, 2)
+                plain_reps = 1 if name == "features" else 2
+                p1 = cuda_ms(plain, plain_reps)
                 k1 = cuda_ms(kern, reps)
                 k2 = cuda_ms(kern, reps)
-                p2 = cuda_ms(plain, 2)
+                p2 = cuda_ms(plain, plain_reps)
                 times[(name, n)] = ((k1 + k2) / 2, (p1 + p2) / 2)
             else:
                 times[(name, n)] = (cuda_ms(kern, reps), None)
-        slice_ms = cuda_ms(lambda: pipeline.generate_area_fused(pos, n, n), reps)
-        times[("slice", n)] = (slice_ms, None)
-        print(f"  {n}x{n} ({n * n} chunks): slice {slice_ms:.3f} ms = "
-              f"{n * n / (slice_ms / 1e3):.1f} chunks/s on {smi}")
+        base_ms = cuda_ms(lambda: pipeline.generate_area_fused(pos, n, n), reps)
+        full_ms = cuda_ms(lambda: pipeline.generate_area_fused(pos, n, n, features=True), reps)
+        half_ms = cuda_ms(lambda: pipeline.feature_half(base_blocks, *args_fill[:3], cv,
+                                                        st["chunk_pos"], n, n), reps)
+        times[("slice", n)] = (full_ms, None)
+        counted = {"base_blocks": base_blocks, "caves": cv, "placement_grids": grids, **st}
+        bounds[n] = {k: bound(*v) for k, v in
+                     op_counts(n, pos, w, counted, lists, list(KERNELS)).items()}
+        print(f"  {n}x{n} ({n * n} chunks) on {smi}: featured slice {full_ms:.3f} ms = "
+              f"{n * n / (full_ms / 1e3):.1f} chunks/s; featureless slice {base_ms:.3f} ms = "
+              f"{n * n / (base_ms / 1e3):.1f} chunks/s; feature half {half_ms:.3f} ms "
+              f"({half_ms / full_ms:.1%} of the featured slice)")
         for name in KERNELS:
-            k, p = times[(name, n)]
-            plain_s = f", plain {p:.3f} ms ({p / k:.1f}x)" if p is not None else ""
-            print(f"    {name:12s} kernel {k:.3f} ms{plain_s}")
+            k, pl_ms = times[(name, n)]
+            b_ms, b_by = bounds[n][name]
+            plain_s = f", plain {pl_ms:.3f} ms ({pl_ms / k:.1f}x)" if pl_ms is not None else ""
+            print(f"    {name:18s} kernel {k:.3f} ms, bound {b_ms:.4g} ms by {b_by} "
+                  f"({b_ms / k:.1%} of it){plain_s}")
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": times[(name, 5)][0], "plain_ms": times[(name, 5)][1]}
+         "ms": times[(name, 5)][0], "plain_ms": times[(name, 5)][1],
+         "bound_ms": bounds[5][name][0], "bound_by": bounds[5][name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]}
-    check("jax" not in sys.modules, "jax was imported")
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "mega_minecraft_tpu" or m.startswith("mega_minecraft_tpu.")]
+    check(not bad, f"jax or the JAX package was imported: {bad[:5]}")
+    stamp("done")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

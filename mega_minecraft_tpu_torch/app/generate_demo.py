@@ -1,12 +1,13 @@
-"""CLI demo: generate a featureless area and print its block histogram and an ASCII
-shade map of the heightfield.
+"""CLI demo: generate an area and print its block histogram and an ASCII shade map of
+the heightfield.
 
 Usage:
     python -m mega_minecraft_tpu_torch.app.generate_demo [--chunks N] [--origin CX CZ]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--features]
 
-``--features`` (SDF features + decorators) and ``--render`` (path tracer) are not
-ported yet and raise.
+``--features`` also places SDF features and decorators and prints the blocks only they
+write (logs, leaves, corals, flora).  ``--render`` (path tracer) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -16,19 +17,32 @@ import sys
 
 import torch
 
-from mega_minecraft_tpu.world.blocks import Block
+from ..world.blocks import Block
 
 SHADES = " .:-=+*#%@"
 
+#: name fragments of the blocks that only SDF features and decorators write
+_FEATURE_WORDS = (
+    "WOOD", "LEAVES", "CORAL", "KELP", "SEAGRASS", "MUSHROOM", "CRYSTAL", "GLOWSTONE",
+    "SHROOMLIGHT", "VINES", "CACTUS", "RAFFLESIA", "STEM", "WART", "FUNGUS", "TULIP",
+    "GRASS_BOTTOM", "GRASS_TOP", "FERN", "ORCHID", "ALLIUM", "DAISY", "LILY", "PEONY", "LILAC",
+    "DANDELION", "POPPY", "CORNFLOWER", "PITCHER", "DEAD_BUSH", "ROOTS", "SPROUTS", "TORCHFLOWER",
+)
+FEATURE_BLOCKS = frozenset(
+    int(b) for b in Block
+    if any(w in b.name for w in _FEATURE_WORDS)
+    or b.name in ("GRASS", "JUNGLE_GRASS", "SAVANNA_GRASS")
+)
 
-def histogram_lines(blocks: torch.Tensor, top: int = 14) -> list[str]:
-    """The ``top`` most common block ids of a u8 block tensor, one line each."""
+
+def histogram_lines(blocks: torch.Tensor, top: int = 14, only=None) -> list[str]:
+    """The ``top`` most common block ids of a u8 block tensor, one line each; with
+    ``only`` (a set of ids) the histogram of those ids alone."""
     hist = torch.bincount(blocks.reshape(-1).to(torch.int64), minlength=256).cpu()
     names = {int(b): b.name for b in Block}
-    order = torch.argsort(hist, descending=True)[:top]
-    return [
-        f"  {names.get(int(b), str(int(b))):22s} {int(hist[b]):>10d}" for b in order if hist[b]
-    ]
+    order = [int(b) for b in torch.argsort(hist, descending=True)
+             if hist[b] and (only is None or int(b) in only)][:top]
+    return [f"  {names.get(b, str(b)):22s} {int(hist[b]):>10d}" for b in order]
 
 
 def shade_map_lines(hf: torch.Tensor, n: int) -> list[str]:
@@ -47,7 +61,7 @@ def main(argv=None):
     p.add_argument("--chunks", type=int, default=5, help="area side length in chunks")
     p.add_argument("--origin", type=int, nargs=2, default=None, metavar=("CX", "CZ"))
     p.add_argument("--device", default="cuda", help="torch device to generate on (cuda or cpu)")
-    p.add_argument("--features", action="store_true", help="not ported yet")
+    p.add_argument("--features", action="store_true", help="also place SDF features and decorators")
     p.add_argument("--render", default=None, metavar="OUT", help="not ported yet")
     args = p.parse_args(argv)
     if args.render:
@@ -63,6 +77,11 @@ def main(argv=None):
     print(f"\nheightfield min/max: {float(hf.min()):.1f} / {float(hf.max()):.1f}")
     print("block histogram (top 14):")
     print("\n".join(histogram_lines(out["blocks"])))
+    if args.features:
+        counts = {k: int(v["count"].sum()) for k, v in out["placements"].items()}
+        print(f"feature and decorator blocks ({counts['surface']} surface and "
+              f"{counts['cave']} cave placements):")
+        print("\n".join(histogram_lines(out["blocks"], only=FEATURE_BLOCKS)))
     print("\nheightfield shade map:")
     print("\n".join(shade_map_lines(hf, n)))
     return 0

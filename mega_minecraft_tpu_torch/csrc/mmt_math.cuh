@@ -71,10 +71,34 @@ MMT_FN uint32_t lcg_next(uint32_t s) {
   return (uint32_t)(((uint64_t)s * 48271ull) % (uint64_t)LCG_M);
 }
 
-// one uniform draw in [0, 1]: ((x - 1) as f32) / f32(m - 2); advances *state
+// the uniform [0, 1] value of a state: ((x - 1) as f32) / f32(m - 2)
+MMT_FN float lcg_value(uint32_t state) { return (float)(state - 1u) / F(2147483645.0); }
+
+// one uniform draw in [0, 1]; advances *state
 MMT_FN float lcg_u01(uint32_t* state) {
   *state = lcg_next(*state);
-  return (float)(*state - 1u) / F(2147483645.0);
+  return lcg_value(*state);
+}
+
+// (x * y) mod (2^31 - 1) for x, y < 2^31: the 64-bit product holds it whole
+MMT_FN uint32_t lcg_mulmod(uint32_t x, uint32_t y) {
+  return (uint32_t)(((uint64_t)x * (uint64_t)y) % (uint64_t)LCG_M);
+}
+
+// a^k mod m by square-and-multiply: the multiplier of a k-step jump of the stream
+MMT_FN uint32_t lcg_pow(uint32_t k) {
+  uint32_t result = 1u, base = 48271u;
+  while (k) {
+    if (k & 1u) result = lcg_mulmod(result, base);
+    base = lcg_mulmod(base, base);
+    k >>= 1;
+  }
+  return result;
+}
+
+// the uniform value of 0-based draw j of the stream that starts at state0
+MMT_FN float lcg_value_at(uint32_t state0, uint32_t j) {
+  return lcg_value(lcg_mulmod(lcg_pow(j + 1u), state0));
 }
 
 // ---------------------------------------------------------------------------
@@ -166,6 +190,8 @@ MMT_FN float sin_cr(float d) {
 
 MMT_FN float sinhash(float d) { return fract(sin_cr(d) * F(39021.426)); }
 
+MMT_FN float rand1_from1(float x) { return sinhash(x * F(238.68)); }
+
 MMT_FN float rand1_from2(float x, float y) { return sinhash(x * F(238.68) + y * F(491.28)); }
 
 MMT_FN float rand1_from3(float x, float y, float z) {
@@ -175,6 +201,17 @@ MMT_FN float rand1_from3(float x, float y, float z) {
 MMT_FN void rand2_from2(float x, float y, float& r0, float& r1) {
   r0 = sinhash(x * F(238.68) + y * F(491.28));
   r1 = sinhash(x * F(654.37) + y * F(560.45));
+}
+
+MMT_FN void rand2_from3(float x, float y, float z, float& r0, float& r1) {
+  r0 = sinhash(x * F(238.68) + y * F(491.28) + z * F(640.88));
+  r1 = sinhash(x * F(654.37) + y * F(560.45) + z * F(151.81));
+}
+
+MMT_FN void rand3_from2(float x, float y, float& r0, float& r1, float& r2) {
+  r0 = sinhash(x * F(238.68) + y * F(491.28));
+  r1 = sinhash(x * F(654.37) + y * F(560.45));
+  r2 = sinhash(x * F(640.88) + y * F(151.81));
 }
 
 // first component of rand3_from2 (the only one the terrain reads)

@@ -1,4 +1,4 @@
-"""Launch wrappers of the four hand-written CUDA kernels (K1-K4).
+"""Launch wrappers of the hand-written CUDA kernels (K1-K8 and K7's stream pre-kernel).
 
 Each wrapper checks device, dtype, shape and contiguity of its inputs, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if the C
@@ -12,17 +12,28 @@ from __future__ import annotations
 
 import torch
 
-from mega_minecraft_tpu.world import biomes as bio
+from ..world import biomes as bio
 
 from ..tables import CARVE_Y_MAX, Y_SIZE, load_tables
 from . import _build
 
 #: launches per kernel since the last reset (plain integers, read by chip_smoke.py)
-LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0}
+LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0, "placements": 0,
+            "compact_placements": 0, "feature_streams": 0, "features": 0, "decorators": 0}
 
 N_BIOMES = bio.NUM_BIOMES
 N_MAT = bio.NUM_MATERIALS
 N_LAYERS = bio.MAX_CAVE_LAYERS_PER_COLUMN
+#: widths of the per-chunk placement lists (feature_placement.CHUNK_*_CAP) and the
+#: draws per placement stream (features_sdf.STREAM_LEN)
+SURFACE_CAP = 256
+CAVE_CAP = 1024
+STREAM_LEN = 64
+SURFACE_FIELDS = ("feature", "x", "y", "z", "replace")
+CAVE_FIELDS = ("feature", "x", "y", "z", "replace", "height")
+#: K5's outputs / K6's inputs, in the order the C entry points take them
+_GRID_KEYS = ("surface_feature", "surface_y", "surface_replace", "cave_feature", "cave_y",
+              "cave_height", "cave_replace")
 
 
 def reset_launch_counts() -> None:
@@ -147,3 +158,136 @@ def fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos):
                     _p(cave_ends), _p(chunk_pos), B, _p(tb.grass_blocks),
                     _p(tb.material_block), _p(tb.cave_biome_noise_weights), _p(blocks))
     return blocks
+
+
+def placements(heightfield, biome_weights, layers, cave_starts, cave_ends, cave_bottom_biome,
+               cave_top_biome, chunk_pos):
+    """K5: -> dict of dense placement grids: surface_feature / surface_y [B,16,16] i32,
+    surface_replace bool, cave_feature / cave_replace [B,16,16,32,2] i32 / bool, cave_y /
+    cave_height [B,16,16,32] i32."""
+    dev = heightfield.device
+    B = heightfield.shape[0]
+    _check(heightfield, "heightfield", torch.float32, (B, 16, 16), dev)
+    _check(biome_weights, "biome_weights", torch.float32, (B, N_BIOMES, 16, 16), dev)
+    _check(layers, "layers", torch.float32, (B, N_MAT, 16, 16), dev)
+    for name, t in (("cave_starts", cave_starts), ("cave_ends", cave_ends),
+                    ("cave_bottom_biome", cave_bottom_biome), ("cave_top_biome", cave_top_biome)):
+        _check(t, name, torch.int32, (B, 16, 16, N_LAYERS), dev)
+    _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+
+    def e(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {
+        "surface_feature": e((B, 16, 16), torch.int32),
+        "surface_y": e((B, 16, 16), torch.int32),
+        "surface_replace": e((B, 16, 16), torch.bool),
+        "cave_feature": e((B, 16, 16, N_LAYERS, 2), torch.int32),
+        "cave_y": e((B, 16, 16, N_LAYERS), torch.int32),
+        "cave_height": e((B, 16, 16, N_LAYERS), torch.int32),
+        "cave_replace": e((B, 16, 16, N_LAYERS, 2), torch.bool),
+    }
+    if B:
+        with torch.cuda.device(dev):
+            _launch("placements", _build.load().mmt_placements,
+                    _p(heightfield), _p(biome_weights), _p(layers), _p(cave_starts), _p(cave_ends),
+                    _p(cave_bottom_biome), _p(cave_top_biome), _p(chunk_pos), B,
+                    *(_p(out[k]) for k in _GRID_KEYS))
+    return out
+
+
+def _check_grids(pl, B, dev):
+    for k in _GRID_KEYS:
+        shape = (B, 16, 16) + ((N_LAYERS,) if k.startswith("cave") else ()) \
+            + ((2,) if k in ("cave_feature", "cave_replace") else ())
+        _check(pl[k], k, torch.bool if k.endswith("replace") else torch.int32, shape, dev)
+
+
+def compact_placements(pl, chunk_pos):
+    """K6: dense grids -> {"surface", "cave"} dicts of [B, 256] / [B, 1024] i32 lists
+    (feature, x, y, z, replace(, height)) + [B] i32 ``count`` (the uncapped number)."""
+    dev = chunk_pos.device
+    B = chunk_pos.shape[0]
+    _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    _check_grids(pl, B, dev)
+    surface = {k: torch.empty((B, SURFACE_CAP), dtype=torch.int32, device=dev) for k in SURFACE_FIELDS}
+    cave = {k: torch.empty((B, CAVE_CAP), dtype=torch.int32, device=dev) for k in CAVE_FIELDS}
+    surface["count"] = torch.empty((B,), dtype=torch.int32, device=dev)
+    cave["count"] = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("compact_placements", _build.load().mmt_compact_placements,
+                    *(_p(pl[k]) for k in _GRID_KEYS), _p(chunk_pos), B,
+                    *(_p(surface[k]) for k in (*SURFACE_FIELDS, "count")),
+                    *(_p(cave[k]) for k in (*CAVE_FIELDS, "count")))
+    return {"surface": surface, "cave": cave}
+
+
+def _check_lists(lists, fields, cap, B, dev, name):
+    for k in fields:
+        _check(lists[k], f"{name}.{k}", torch.int32, (B, cap), dev)
+    _check(lists["count"], f"{name}.count", torch.int32, (B,), dev)
+
+
+def feature_streams(surface_lists, cave_lists):
+    """K7's pre-kernel: the 64-draw stream of every list entry ->
+    (surface [B, 256, 64] f32, cave [B, 1024, 64] f32)."""
+    dev = surface_lists["x"].device
+    B = surface_lists["x"].shape[0]
+    for k in "xyz":
+        _check(surface_lists[k], f"surface.{k}", torch.int32, (B, SURFACE_CAP), dev)
+        _check(cave_lists[k], f"cave.{k}", torch.int32, (B, CAVE_CAP), dev)
+    s_out = torch.empty((B, SURFACE_CAP, STREAM_LEN), dtype=torch.float32, device=dev)
+    c_out = torch.empty((B, CAVE_CAP, STREAM_LEN), dtype=torch.float32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("feature_streams", _build.load().mmt_feature_streams,
+                    *(_p(surface_lists[k]) for k in "xyz"), *(_p(cave_lists[k]) for k in "xyz"),
+                    B, _p(s_out), _p(c_out))
+    return s_out, c_out
+
+
+def features(blocks, surface_lists, cave_lists, surface_streams, cave_streams, chunk_pos,
+             ncx: int, ncz: int):
+    """K7: blocks [B,16,16,384] u8 of an ncx x ncz area (B = ncz*ncx row-major) with the
+    placement lists applied -> new blocks tensor.
+
+    The lists are K6's: [B, 256] / [B, 1024] i32 with the valid entries first and a true
+    [B] ``count``; the kernel reads the first min(count, width) entries of a list."""
+    dev = blocks.device
+    B = ncx * ncz
+    _check(blocks, "blocks", torch.uint8, (B, 16, 16, Y_SIZE), dev)
+    _check_lists(surface_lists, SURFACE_FIELDS, SURFACE_CAP, B, dev, "surface")
+    _check_lists(cave_lists, CAVE_FIELDS, CAVE_CAP, B, dev, "cave")
+    _check(surface_streams, "surface_streams", torch.float32, (B, SURFACE_CAP, STREAM_LEN), dev)
+    _check(cave_streams, "cave_streams", torch.float32, (B, CAVE_CAP, STREAM_LEN), dev)
+    _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    out = torch.empty_like(blocks)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("features", _build.load().mmt_features, _p(blocks),
+                    *(_p(surface_lists[k]) for k in (*SURFACE_FIELDS, "count")), _p(surface_streams),
+                    *(_p(cave_lists[k]) for k in (*CAVE_FIELDS, "count")), _p(cave_streams),
+                    _p(chunk_pos), ncx, ncz, _p(out))
+    return out
+
+
+def decorators(blocks, heightfield, biome_weights, cave_starts, cave_ends, cave_bottom_biome,
+               chunk_pos):
+    """K8: blocks [B,16,16,384] u8 -> new blocks tensor with the decorators placed."""
+    dev = blocks.device
+    B = blocks.shape[0]
+    _check(blocks, "blocks", torch.uint8, (B, 16, 16, Y_SIZE), dev)
+    _check(heightfield, "heightfield", torch.float32, (B, 16, 16), dev)
+    _check(biome_weights, "biome_weights", torch.float32, (B, N_BIOMES, 16, 16), dev)
+    for name, t in (("cave_starts", cave_starts), ("cave_ends", cave_ends),
+                    ("cave_bottom_biome", cave_bottom_biome)):
+        _check(t, name, torch.int32, (B, 16, 16, N_LAYERS), dev)
+    _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    out = torch.empty_like(blocks)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("decorators", _build.load().mmt_decorators,
+                    _p(blocks), _p(heightfield), _p(biome_weights), _p(cave_starts), _p(cave_ends),
+                    _p(cave_bottom_biome), _p(chunk_pos), B, _p(out))
+    return out

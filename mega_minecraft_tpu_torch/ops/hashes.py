@@ -14,6 +14,7 @@ its reciprocal, which is not IEEE division.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -91,6 +92,36 @@ def lcg_u01(state):
 def lcg_uniform(state, lo: float, hi: float):
     v, state = lcg_u01(state)
     return v * (hi - lo) + lo, state  # torch rounds each Python float to f32
+
+
+# ---------------------------------------------------------------------------
+# LCG jumping (hashes.py:116-160): the state after k steps is a^k * s0 mod m, so draw j
+# of a stream is one table lookup and one modular multiply.  The JAX package splits
+# the product into 16-bit halves for a machine without 64-bit integers; int64 holds
+# it whole, with the same result.  The CUDA twin computes a^k by square-and-multiply.
+# ---------------------------------------------------------------------------
+
+
+def lcg_pow_table(n: int) -> np.ndarray:
+    """[n] int64 numpy table: a^k mod m for k in [0, n)."""
+    out = np.empty(n, np.int64)
+    v = 1
+    for k in range(n):
+        out[k] = v
+        v = (v * LCG_A) % LCG_M
+    return out
+
+
+def lcg_mulmod(x, y) -> torch.Tensor:
+    """(x * y) mod (2^31 - 1) for values < 2^31 (the product fits int64)."""
+    return (u32(x) * u32(y)) % LCG_M
+
+
+def lcg_value_at(state0, j, pow_table) -> torch.Tensor:
+    """The uniform [0, 1] value of 0-based draw ``j`` from ``state0``: equal to calling
+    ``lcg_u01`` j + 1 times.  ``pow_table``: int64 tensor from ``lcg_pow_table``."""
+    state = lcg_mulmod(pow_table[torch.as_tensor(j).to(I64) + 1], state0)
+    return div((state - 1).to(F32), _LCG_RANGE)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Device copies of the biome / material tables ("the weights carried across").
 
-The numpy tables of ``mega_minecraft_tpu.world.biomes`` are the one source: the plain
-versions read them directly, and the CUDA kernels receive the tensors made here as
-arguments, so a table edit reaches both paths.
+The numpy tables of the port's ``world`` modules are the one source: the plain versions
+read them directly, and the CUDA kernels receive them either as the tensors made here
+or as constant arrays in the generated header (``kernels/_build.py``), so a table edit
+reaches both paths.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import functools
 import numpy as np
 import torch
 
-from mega_minecraft_tpu.world import biomes as bio
+from .world import biomes as bio
+from .world import features_data as fd
+from .world.blocks import Block
 
 #: blocks per column
 Y_SIZE = 384
@@ -68,6 +71,34 @@ def load_tables(device) -> Tables:
     )
 
 
+def decorator_tables() -> dict:
+    """The decorator gen lists of ``world.features_data`` flattened for the kernel:
+    per (cave) biome a start and a count into one list of gens, each with its block,
+    chance, second block, ceiling flag and padded under / replace block sets."""
+    gens, out = [], {}
+    for name, table, n in (("SURF", fd.BIOME_DECORATOR_GENS, bio.NUM_BIOMES),
+                           ("CAVE", fd.CAVE_DECORATOR_GENS, bio.NUM_CAVE_BIOMES)):
+        start = np.zeros(n, np.int32)
+        count = np.zeros(n, np.int32)
+        for b in range(n):
+            start[b], count[b] = len(gens), len(table.get(b, []))
+            gens += table.get(b, [])
+        out[f"DEC_{name}_START"], out[f"DEC_{name}_COUNT"] = start, count
+    max_under = max(len(g[2]) for g in gens)
+    max_replace = max(len(g[3]) for g in gens)
+    out["DEC_BLOCK"] = np.array([g[0] for g in gens], np.int32)
+    out["DEC_CHANCE"] = np.array([g[1] for g in gens], np.float32)
+    out["DEC_N_UNDER"] = np.array([len(g[2]) for g in gens], np.int32)
+    out["DEC_UNDER"] = np.array([list(g[2]) + [-1] * (max_under - len(g[2])) for g in gens], np.int32)
+    out["DEC_N_REPLACE"] = np.array([len(g[3]) for g in gens], np.int32)
+    out["DEC_REPLACE"] = np.array(
+        [list(g[3]) + [-1] * (max_replace - len(g[3])) for g in gens], np.int32)
+    out["DEC_SECOND"] = np.array([g[4] for g in gens], np.int32)
+    out["DEC_CEILING"] = np.array([int(g[5]) for g in gens], np.int32)
+    assert int(Block.AIR) == 0  # a second block of AIR means "none"
+    return out
+
+
 #: port dtype of every array the JAX stages return (by key)
 _STAGE_DTYPES = {
     "heightfield": torch.float32,
@@ -80,11 +111,28 @@ _STAGE_DTYPES = {
     "chunk_pos": torch.int32,
     "pos_halo": torch.int32,
     "blocks": torch.uint8,
+    # generate_placements' dense grids
+    "surface_feature": torch.int32,
+    "surface_y": torch.int32,
+    "surface_replace": torch.bool,
+    "cave_feature": torch.int32,
+    "cave_y": torch.int32,
+    "cave_height": torch.int32,
+    "cave_replace": torch.bool,
+    # compact_placements' lists ({"surface", "cave"} dicts)
+    "feature": torch.int32,
+    "x": torch.int32,
+    "y": torch.int32,
+    "z": torch.int32,
+    "replace": torch.int32,
+    "height": torch.int32,
+    "count": torch.int32,
 }
 
 
 def from_jax_outputs(np_dict, device) -> dict:
-    """JAX stage outputs (as numpy, nested ``caves`` dict allowed) -> port tensors.
+    """JAX stage outputs (as numpy; nested dicts such as ``caves``, ``placements`` or
+    the ``surface`` / ``cave`` lists allowed) -> port tensors.
 
     Lets a test feed each port stage exactly the JAX stage's inputs.  Unknown keys
     raise, so a renamed stage output cannot be converted with a wrong dtype."""

@@ -1,0 +1,227 @@
+"""Stage 5b: apply the placement lists to an area's block volume (kernel K7).
+
+Port of ``mega_minecraft_tpu/terrain/features.py:37-77,172-457``.  Per voxel the winner
+is the first placement, in the voxel's own chunk's 49-chunk spiral order and then list
+slot, whose SDF hits, whose y lies within the type's height bounds and whose terrain
+block is AIR or replaceable; surface placements win over cave ones; both test the
+terrain block.  A consumer chunk sees a placement only while its index in that
+consumer's gathered list (true counts of the earlier spiral sources + slot) is below
+the reference's gather cap (2,048 surface / 4,096 cave).
+
+``apply_features_area`` dispatches on the device: CUDA tensors go to K7 in
+``csrc/features.cu`` (after its pre-kernel there made each placement's 64-draw stream),
+CPU tensors to the plain version, a Python loop over placements that evaluates each over
+its window and keeps the minimum (spiral rank, slot) key per voxel.
+
+Both versions evaluate a placement only inside the same per-type XZ window: the JAX
+program's window for the type (its radius table rounded up to its 16-block window
+grid), centred on the placement and cut at the area's edge.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops import hashes
+from ..tables import Y_SIZE
+from ..world import biomes as bio
+from ..world import features_data as fd
+from ..world.blocks import Block
+from . import features_sdf as sdf
+from .feature_placement import GATHER_OFFSETS
+
+I32 = torch.int32
+AIR = int(Block.AIR)
+
+#: XZ half-extent of each surface feature's geometry in blocks (measured extent + margin)
+SURFACE_XZ_RADIUS = {
+    int(fd.Feature.SPHERE): 7,
+    int(fd.Feature.CORAL): 9,
+    int(fd.Feature.KELP): 3,
+    int(fd.Feature.ICEBERG): 39,
+    int(fd.Feature.ACACIA_TREE): 10,
+    int(fd.Feature.REDWOOD_TREE): 14,
+    int(fd.Feature.CYPRESS_TREE): 12,
+    int(fd.Feature.BIRCH_TREE): 6,
+    int(fd.Feature.PINE_TREE): 5,
+    int(fd.Feature.PINE_SHRUB): 4,
+    int(fd.Feature.RAFFLESIA): 9,
+    int(fd.Feature.LARGE_JUNGLE_TREE): 11,
+    int(fd.Feature.SMALL_JUNGLE_TREE): 7,
+    int(fd.Feature.TINY_JUNGLE_TREE): 3,
+    int(fd.Feature.MEDIUM_PURPLE_MUSHROOM): 4,
+    int(fd.Feature.PURPLE_MUSHROOM): 47,
+    int(fd.Feature.MEDIUM_CRYSTAL): 13,
+    int(fd.Feature.CRYSTAL): 25,
+    int(fd.Feature.PALM_TREE): 16,
+    int(fd.Feature.CACTUS): 4,
+}
+
+#: (xz_radius, y anchor) of each cave feature; the anchor only shaped the JAX program's
+#: y window and is kept so the table can be held equal to the reference's
+CAVE_WINDOWS = {
+    int(fd.CaveFeature.TEST_GLOWSTONE_PILLAR): (3, "full"),
+    int(fd.CaveFeature.TEST_SHROOMLIGHT_PILLAR): (3, "full"),
+    int(fd.CaveFeature.CAVE_VINE): (3, "full"),
+    int(fd.CaveFeature.GLOWSTONE_CLUSTER): (8, "ceil"),
+    int(fd.CaveFeature.STORMLIGHT_SPHERE): (10, "floor"),
+    int(fd.CaveFeature.CEILING_STORMLIGHT_SPHERE): (10, "ceil"),
+    int(fd.CaveFeature.CRYSTAL_PILLAR): (7, "full"),
+    int(fd.CaveFeature.WARPED_FUNGUS): (6, "floor"),
+    int(fd.CaveFeature.AMBER_FUNGUS): (5, "floor"),
+}
+
+#: spiral rank of a source chunk at chunk offset (dx, dz) from the consumer, [dz+3][dx+3]
+RANK_OF_OFFSET = np.full((7, 7), -1, np.int32)
+for _r, (_dx, _dz) in enumerate(GATHER_OFFSETS):
+    RANK_OF_OFFSET[_dz + 3, _dx + 3] = _r
+
+
+def window_half_widths(cave: bool) -> np.ndarray:
+    """[n_types, 2] i32 (below, above): a placement of the type is evaluated at XZ
+    offsets -below .. +above.  The width is 2r + 2 rounded up to a multiple of 16, the
+    offsets those of the JAX program's window before any shift at the area's edge."""
+    n_types = fd.NUM_CAVE_FEATURES if cave else fd.NUM_FEATURES
+    out = np.zeros((n_types, 2), np.int32)
+    for f in range(n_types):
+        r = CAVE_WINDOWS.get(f, (15, "full"))[0] if cave else SURFACE_XZ_RADIUS.get(f, 31)
+        width = -(-(2 * r + 2) // 16) * 16
+        out[f] = (width // 2 - 1, width // 2)
+    return out
+
+
+def gather_prefix(counts: np.ndarray, ncx: int, ncz: int) -> np.ndarray:
+    """[B, 49] exclusive prefix over each consumer chunk's spiral of the true placement
+    counts of the sources inside the area: the gathered index of (source rank r, slot k)
+    is prefix[consumer, r] + k."""
+    B = ncx * ncz
+    mat = np.zeros((B, len(GATHER_OFFSETS)), np.int64)
+    for cb in range(B):
+        vz, vx = divmod(cb, ncx)
+        for r, (ox, oz) in enumerate(GATHER_OFFSETS):
+            sx, sz = vx + int(ox), vz + int(oz)
+            if 0 <= sx < ncx and 0 <= sz < ncz:
+                mat[cb, r] = counts[sz * ncx + sx]
+    return np.cumsum(mat, axis=1) - mat
+
+
+def apply_placements_area_plain(area_blocks, lists, origin_xz, ncx: int, ncz: int, cave: bool):
+    """Plain application of every chunk's source list over the area volume.
+
+    area_blocks [ncz*16, ncx*16, 384] u8; lists: dict of [B, K] i32 and the [B] true
+    (uncapped) ``count``;
+    origin_xz [2] i32.  Returns (area with the winning feature blocks, placed mask)."""
+    dev = area_blocks.device
+    nz, nx = ncz * 16, ncx * 16
+    feats = lists["feature"].cpu().numpy()
+    B, K = feats.shape
+    assert B == ncx * ncz
+    host = {k: lists[k].cpu().numpy() for k in lists if k not in ("feature", "count")}
+    prefix = gather_prefix(lists["count"].cpu().numpy(), ncx, ncz)
+    ox, oz = (int(v) for v in origin_xz.cpu())
+
+    gather_cap = bio.MAX_GATHERED_CAVE_FEATURES_PER_CHUNK if cave else bio.MAX_GATHERED_FEATURES_PER_CHUNK
+    bounds = fd.CAVE_FEATURE_HEIGHT_BOUNDS if cave else fd.FEATURE_HEIGHT_BOUNDS
+    fns = sdf.CAVE_FEATURE_FNS if cave else sdf.SURFACE_FEATURE_FNS
+    feat_seed = sdf.SEED_CAVE_FEATURE_RNG if cave else sdf.SEED_SURFACE_FEATURE_RNG
+    block_seed = sdf.SEED_CAVE_BLOCK_RNG if cave else sdf.SEED_SURFACE_BLOCK_RNG
+    half = window_half_widths(cave)
+
+    INF = 1 << 40
+    best_key = torch.full((nz, nx, Y_SIZE), INF, dtype=torch.int64, device=dev)
+    best_block = torch.zeros((nz, nx, Y_SIZE), dtype=I32, device=dev)
+
+    def i32(v):
+        return torch.tensor(int(v), dtype=I32, device=dev)
+
+    for sb, k in zip(*np.nonzero(feats > 0)):
+        fid = int(feats[sb, k])
+        fn = fns.get(fid)
+        if fn is None:
+            continue
+        px, py, pz = (int(host[c][sb, k]) for c in "xyz")
+        layer_h = int(host["height"][sb, k]) if cave else 0
+        z0, z1 = max(pz - oz - half[fid, 0], 0), min(pz - oz + half[fid, 1], nz - 1)
+        x0, x1 = max(px - ox - half[fid, 0], 0), min(px - ox + half[fid, 1], nx - 1)
+        y0, y1 = max(py + int(bounds[fid, 0]), 0), min(py + layer_h + int(bounds[fid, 1]), Y_SIZE - 1)
+        if z0 > z1 or x0 > x1 or y0 > y1:
+            continue
+
+        # per-column priority key: spiral rank of the source in the column's own chunk
+        sz_, sx_ = divmod(int(sb), ncx)
+        czc = np.arange(z0, z1 + 1) // 16
+        cxc = np.arange(x0, x1 + 1) // 16
+        ddz = (sz_ - czc)[:, None] + np.zeros_like(cxc)[None, :]
+        ddx = (sx_ - cxc)[None, :] + np.zeros_like(czc)[:, None]
+        near = (np.abs(ddz) <= 3) & (np.abs(ddx) <= 3)
+        rank = RANK_OF_OFFSET[np.clip(ddz, -3, 3) + 3, np.clip(ddx, -3, 3) + 3]
+        consumer = czc[:, None] * ncx + cxc[None, :]
+        visible = near & (prefix[consumer, np.maximum(rank, 0)] + k < gather_cap)
+        if not visible.any():
+            continue
+        key = torch.as_tensor(np.where(visible, rank.astype(np.int64) * K + k, INF), device=dev)
+
+        shape = (z1 - z0 + 1, x1 - x0 + 1, y1 - y0 + 1)
+        wz = (oz + torch.arange(z0, z1 + 1, dtype=I32, device=dev))[:, None, None].expand(shape)
+        wx = (ox + torch.arange(x0, x1 + 1, dtype=I32, device=dev))[None, :, None].expand(shape)
+        wy = torch.arange(y0, y1 + 1, dtype=I32, device=dev)[None, None, :].expand(shape)
+        brng = hashes.seed_4(wx, wy, wz, block_seed)
+        stream = sdf.draw_stream(i32(px), i32(py), i32(pz), feat_seed)
+        extra = {"fy_pos": i32(py), "fpos": (i32(px), i32(py), i32(pz)), "layer_height": i32(layer_h)}
+        hit, fblock, _ = fn(stream, wx - px, wy - py, wz - pz, wx, wy, wz, brng, extra)
+
+        win = (slice(z0, z1 + 1), slice(x0, x1 + 1), slice(y0, y1 + 1))
+        ok = hit
+        if not int(host["replace"][sb, k]):
+            ok = ok & (area_blocks[win] == AIR)
+        take = ok & (key[:, :, None] < best_key[win])
+        best_key[win] = torch.where(take, key[:, :, None], best_key[win])
+        best_block[win] = torch.where(take, fblock, best_block[win])
+
+    placed = best_key != INF
+    return torch.where(placed, best_block.to(torch.uint8), area_blocks), placed
+
+
+def apply_features_area_plain(blocks, surface_lists, cave_lists, chunk_pos, ncx: int, ncz: int):
+    """Plain area-level feature application -> [B, 16, 16, 384] u8 (B = ncz*ncx
+    row-major).  Surface placements take priority; cave placements test the terrain
+    block and claim only voxels no surface feature took."""
+    B = blocks.shape[0]
+    area = (
+        blocks.reshape(ncz, ncx, 16, 16, Y_SIZE)
+        .permute(0, 2, 1, 3, 4)
+        .reshape(ncz * 16, ncx * 16, Y_SIZE)
+    )
+    origin = chunk_pos[0]
+    area_s, placed_s = apply_placements_area_plain(area, surface_lists, origin, ncx, ncz, cave=False)
+    area_c, placed_c = apply_placements_area_plain(area, cave_lists, origin, ncx, ncz, cave=True)
+    out = torch.where(placed_s, area_s, torch.where(placed_c, area_c, area))
+    return (
+        out.reshape(ncz, 16, ncx, 16, Y_SIZE)
+        .permute(0, 2, 1, 3, 4)
+        .reshape(B, 16, 16, Y_SIZE)
+        .contiguous()
+    )
+
+
+def draw_streams_plain(surface_lists, cave_lists):
+    """(surface [B, K, 64], cave [B, K, 64]) f32: the 64-draw stream of every list entry
+    (valid or not)."""
+    return (
+        sdf.draw_stream(surface_lists["x"], surface_lists["y"], surface_lists["z"],
+                        sdf.SEED_SURFACE_FEATURE_RNG),
+        sdf.draw_stream(cave_lists["x"], cave_lists["y"], cave_lists["z"],
+                        sdf.SEED_CAVE_FEATURE_RNG),
+    )
+
+
+def apply_features_area(blocks, surface_lists, cave_lists, chunk_pos, ncx: int, ncz: int):
+    """Area-level feature application: K7 on CUDA, the plain version on the CPU."""
+    if blocks.is_cuda:
+        streams_s, streams_c = kernels.feature_streams(surface_lists, cave_lists)
+        return kernels.features(blocks, surface_lists, cave_lists, streams_s, streams_c,
+                                chunk_pos, ncx, ncz)
+    kernels.require_cpu(blocks)
+    return apply_features_area_plain(blocks, surface_lists, cave_lists, chunk_pos, ncx, ncz)

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from mega_minecraft_tpu.world import biomes as bio
-from mega_minecraft_tpu.world.blocks import Block
+from ..world import biomes as bio
+from ..world.blocks import Block
 
 from .. import kernels
 from ..ops import hashes
@@ -26,6 +26,22 @@ LAVA_LEVEL = bio.LAVA_LEVEL
 
 _B = Block
 U8 = torch.uint8
+
+
+def random_biome(biome_weights_last, rand):
+    """getRandomBiome (fill.py:48-57): the first biome whose running weight sum reaches
+    ``rand``, PLAINS when none does.  biome_weights_last [..., 24] f32 (broadcastable
+    against rand[..., None]); rand [...] f32 -> i32 biome ids shaped like rand.  The
+    running sum is added biome by biome, as the kernels add it."""
+    running = torch.zeros_like(rand)
+    biome = torch.full(rand.shape, int(bio.Biome.PLAINS), dtype=torch.int32, device=rand.device)
+    picked = torch.zeros_like(rand, dtype=torch.bool)
+    for b in range(bio.NUM_BIOMES):
+        running = running + biome_weights_last[..., b]
+        cond = (rand - running) <= 0.0
+        biome = torch.where(cond & ~picked, b, biome)
+        picked = picked | cond
+    return biome
 
 
 def _cave_depths(starts, ends, y):
@@ -185,21 +201,11 @@ def fill_chunks_plain(heightfield, biome_weights, layers, cave_starts, cave_ends
     wxf = wx.to(torch.float32)
     wzf = wz.to(torch.float32)
 
-    # per-block seeded draw picks the random biome (first biome whose running weight
-    # sum reaches it; PLAINS when none does)
+    # per-block seeded draw picks the random biome
     u, _ = hashes.lcg_u01(hashes.seed_3(wx.expand_as(wy), wy, wz.expand_as(wy)))
-    grass_tab = bio.GRASS_BLOCKS
-    running = torch.zeros_like(hf)
-    rand_biome = torch.full_like(wy, int(bio.Biome.PLAINS))
-    grass = torch.full(wy.shape, int(grass_tab[int(bio.Biome.PLAINS)]), dtype=U8, device=dev)
-    picked = torch.zeros_like(wy, dtype=torch.bool)
-    for b in range(bio.NUM_BIOMES):
-        running = running + biome_weights[:, b, :, :, None]
-        cond = (u - running) <= 0.0
-        take = cond & ~picked
-        rand_biome = torch.where(take, b, rand_biome)
-        grass = _sel(take, int(grass_tab[b]), grass)
-        picked = picked | cond
+    rand_biome = random_biome(biome_weights.permute(0, 2, 3, 1)[:, :, :, None, :], u)
+    grass_tab = torch.as_tensor(bio.GRASS_BLOCKS, device=dev).to(U8)
+    grass = grass_tab[rand_biome.long()]
 
     is_ocean = (biome_weights[:, : bio.NUM_OCEAN_BIOMES] > 0.0).any(1)[..., None]
     in_cave, bottom_d, top_d = _cave_depths(

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from mega_minecraft_tpu.world import biomes as bio
-from mega_minecraft_tpu.world.biomes import Biome
+from ..world import biomes as bio
+from ..world.biomes import Biome
 
 from .. import kernels
 from ..ops.noise import fbm2, fbm2_from2, simplex2, simplex2_from2, smoothstep, worley2

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from mega_minecraft_tpu.world import biomes as bio
+from ..world import biomes as bio
 
 from .. import kernels
 from ..ops.hashes import div, f32

@@ -1,9 +1,11 @@
-"""Pipeline: heightfield -> layers -> caves -> fill over a chunk area.
+"""Pipeline: heightfield -> layers -> caves -> fill, and with ``features=True`` feature
+placement -> SDF features -> decorators, over a chunk area.
 
-Port of the featureless leg of ``mega_minecraft_tpu/terrain/pipeline.py``
-(``generate_area_fused`` / ``_fused_gen_half`` and ``generate_area``).  Every stage
-dispatches on the device of ``pos_halo``: on CUDA the area is four kernel launches
-(K1-K4) with no host round trip between them; on the CPU it runs the plain versions.
+Port of ``mega_minecraft_tpu/terrain/pipeline.py`` (``generate_area_fused`` with its
+two halves, and ``generate_area``) without erosion.  Every stage dispatches on the
+device of ``pos_halo``: on CUDA the area is a chain of kernel launches (K1-K4, then
+K5-K8 and the stream pre-kernel) with no host round trip between them; on the CPU it
+runs the plain versions.
 """
 
 from __future__ import annotations
@@ -12,10 +14,21 @@ import numpy as np
 import torch
 
 from . import caves as caves_mod
-from . import fill, heightfield, layers
+from . import decorators, feature_placement, features as features_mod, fill, heightfield, layers
 
-_FEATURES_TODO = "SDF features and decorators are not ported yet (ROADMAP Queue 1, items 7-8)"
 _EROSION_TODO = "zone erosion is not ported yet (ROADMAP Queue 1, item 9)"
+
+
+def feature_half(blocks, hf, w, ls, cv, pos, ncx: int, ncz: int):
+    """Placements -> per-chunk lists -> area-level SDF features -> decorators
+    (``_fused_feature_half``).  Returns (blocks, placement lists)."""
+    pl = feature_placement.generate_placements(
+        hf, w, ls, cv["starts"], cv["ends"], cv["bottom_biome"], cv["top_biome"], pos)
+    lists = feature_placement.compact_placements(pl, pos)
+    blocks = features_mod.apply_features_area(blocks, lists["surface"], lists["cave"], pos, ncx, ncz)
+    blocks = decorators.place_decorators_batch(
+        blocks, hf, w, cv["starts"], cv["ends"], cv["bottom_biome"], pos)
+    return blocks, lists
 
 
 def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
@@ -24,11 +37,12 @@ def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
     Args:
       pos_halo: [(ncz+2)*(ncx+2), 2] i32 world-block chunk origins, row-major with the
         1-chunk halo included, on the device to run on.
+      features: also place SDF features and decorators.  Only placements generated
+        inside the area exist, so features of chunks beyond its edge are missing.
     Returns dict of tensors for the ncx*ncz inner chunks: blocks [B,16,16,384] u8,
-    heightfield, biome_weights, layers, caves (dict), chunk_pos.
+    heightfield, biome_weights, layers, caves (dict), chunk_pos, and with features
+    ``placements`` (the per-chunk lists).
     """
-    if features:
-        raise NotImplementedError(_FEATURES_TODO)
     hf, w = heightfield.generate_heightfield(pos_halo)
     st = layers.layers_from_halo(hf, w, pos_halo, ncx, ncz)
     cv = caves_mod.generate_caves(st["heightfield"], st["biome_weights"], st["chunk_pos"])
@@ -36,7 +50,7 @@ def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
         st["heightfield"], st["biome_weights"], st["layers"], cv["starts"], cv["ends"],
         st["chunk_pos"],
     )
-    return {
+    out = {
         "blocks": blocks,
         "heightfield": st["heightfield"],
         "biome_weights": st["biome_weights"],
@@ -44,6 +58,11 @@ def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
         "caves": cv,
         "chunk_pos": st["chunk_pos"],
     }
+    if features:
+        out["blocks"], out["placements"] = feature_half(
+            blocks, st["heightfield"], st["biome_weights"], st["layers"], cv, st["chunk_pos"],
+            ncx, ncz)
+    return out
 
 
 def chunk_positions(cx0: int, cz0: int, ncx: int, ncz: int, device) -> torch.Tensor:
@@ -58,13 +77,12 @@ def generate_area(cx0: int, cz0: int, ncx: int, ncz: int, erode: bool = False,
                   features: bool = False, *, device):
     """Generate the ``ncx x ncz``-chunk area at chunk coords (cx0, cz0) on ``device``.
 
-    Returns the dict of ``generate_area_fused`` with blocks shaped [ncz, ncx, 16, 16, 384].
+    Returns the dict of ``generate_area_fused`` with blocks shaped [ncz, ncx, 16, 16, 384]
+    (with ``features`` also ``placements``, as the JAX function returns them).
     """
     if erode:
         raise NotImplementedError(_EROSION_TODO)
-    if features:
-        raise NotImplementedError(_FEATURES_TODO)
     pos_halo = chunk_positions(cx0 - 1, cz0 - 1, ncx + 2, ncz + 2, device=device)
-    out = generate_area_fused(pos_halo, ncx, ncz)
+    out = generate_area_fused(pos_halo, ncx, ncz, features=features)
     out["blocks"] = out["blocks"].reshape(ncz, ncx, 16, 16, 384)
     return out

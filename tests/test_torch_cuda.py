@@ -1,5 +1,6 @@
-"""The four CUDA kernels (K1-K4) through the pipeline on the card vs the plain
-versions on the CPU, for the 1x1-chunk area at the golden chunk (592, -368).
+"""The CUDA kernels through the pipeline on the card vs the plain versions: K1-K4 for
+the 1x1-chunk area at the golden chunk (592, -368) against the plain versions on the
+CPU, and K1-K8 for the featured 5x5 bench area against the plain chain run on the card.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and skips
 without a card.  The file imports no JAX, so on a GPU machine without JAX it runs as
@@ -8,7 +9,9 @@ without a card.  The file imports no JAX, so on a GPU machine without JAX it run
 
 (``tests/conftest.py`` configures JAX).  Tolerances: heightfield, weights, layers
 max |diff| <= 1e-3 and >= 99.9% within 1e-5 (``pow`` and the ravine ``sin`` go
-through each platform's libm); cave arrays agreement >= 0.999; blocks >= 0.9999.
+through each platform's libm); cave arrays agreement >= 0.999; blocks >= 0.9999.  The
+featured 5x5 area shares the card's libm with its plain chain: every field of the
+placement lists and the blocks are equal.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import pytest
 import torch
 
 from mega_minecraft_tpu_torch import kernels
-from mega_minecraft_tpu_torch.terrain import pipeline
+from mega_minecraft_tpu_torch.terrain import (caves, decorators, feature_placement, features, fill,
+                                              heightfield, layers, pipeline)
 
 ORIGIN_CHUNK = (592 // 16, -368 // 16)
 
@@ -49,7 +53,8 @@ def test_kernels_match_plain_on_gpu(cuda_device, plain_area):
     kernels.reset_launch_counts()
     out = pipeline.generate_area_fused(_pos_halo(cuda_device), 1, 1)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"heightfield": 1, "layers": 1, "caves": 1, "fill": 1}
+    gen = ("heightfield", "layers", "caves", "fill")
+    assert kernels.launch_counts() == {k: int(k in gen) for k in kernels.LAUNCHES}
     assert out["blocks"].device == cuda_device
     assert (out["blocks"].cpu() == plain_area["blocks"]).double().mean() >= 0.9999
     for key in ("heightfield", "biome_weights", "layers"):
@@ -57,3 +62,30 @@ def test_kernels_match_plain_on_gpu(cuda_device, plain_area):
     for key, want in plain_area["caves"].items():
         assert (out["caves"][key].cpu() == want).double().mean() >= 0.999
     assert torch.equal(out["chunk_pos"].cpu(), plain_area["chunk_pos"])
+
+
+@pytest.mark.cuda
+def test_featured_5x5_matches_plain_chain_on_gpu(cuda_device):
+    pos = pipeline.chunk_positions(-1, -1, 7, 7, device=cuda_device)
+    kernels.reset_launch_counts()
+    out = pipeline.generate_area_fused(pos, 5, 5, features=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {k: 1 for k in kernels.LAUNCHES}
+
+    hf, w = heightfield.generate_heightfield_plain(pos)
+    st = layers.layers_from_halo_plain(hf, w, pos, 5, 5)
+    hf_in, w_in, pos_in = st["heightfield"], st["biome_weights"], st["chunk_pos"]
+    cv = caves.generate_caves_plain(hf_in, w_in, pos_in)
+    blocks = fill.fill_chunks_plain(hf_in, w_in, st["layers"], cv["starts"], cv["ends"], pos_in)
+    pl = feature_placement.generate_placements_plain(
+        hf_in, w_in, st["layers"], cv["starts"], cv["ends"], cv["bottom_biome"], cv["top_biome"], pos_in)
+    lists = feature_placement.compact_placements_plain(pl, pos_in)
+    featured = features.apply_features_area_plain(blocks, lists["surface"], lists["cave"], pos_in, 5, 5)
+    want = decorators.place_decorators_batch_plain(
+        featured, hf_in, w_in, cv["starts"], cv["ends"], cv["bottom_biome"], pos_in)
+    assert int((featured != blocks).sum()) > 0 and int((want != featured).sum()) > 0
+    for kind in ("surface", "cave"):
+        assert sorted(out["placements"][kind]) == sorted(lists[kind])
+        for field, value in lists[kind].items():
+            assert torch.equal(out["placements"][kind][field], value), (kind, field)
+    assert torch.equal(out["blocks"], want)

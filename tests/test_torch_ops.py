@@ -255,4 +255,26 @@ def test_build_flags_and_hash():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags
     assert _build.source_hash() == _build.source_hash()
-    assert sorted(p.name for p in _build._sources()) == ["caves.cu", "fill.cu", "heightfield.cu", "layers.cu"]
+    assert sorted(p.name for p in _build._sources()) == [
+        "caves.cu", "decorators.cu", "features.cu", "fill.cu", "heightfield.cu", "layers.cu",
+        "placements.cu"]
+    # every C entry point the wrappers call is declared in one of the sources
+    text = "".join(p.read_text() for p in _build._sources())
+    for name in _build.SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
+
+
+def test_feature_tables_header_covers_the_feature_half():
+    from mega_minecraft_tpu.world import features_data as fd
+
+    header = _build.feature_tables_header()
+    for f in fd.Feature:
+        assert f"#define FEAT_{f.name} {int(f)}\n" in header
+    for f in fd.CaveFeature:
+        assert f"#define CAVEFEAT_{f.name} {int(f)}\n" in header
+    for name in ("FEATURE_HEIGHT_BOUNDS[21][2]", "CAVE_FEATURE_HEIGHT_BOUNDS[10][2]",
+                 "SG_CHANCE[24][4]", "CG_MIN_HEIGHT[5][3]", "GATHER_OFFSETS[49][2]",
+                 "SURFACE_WINDOW[21][2]", "CAVE_WINDOW[10][2]", "DEC_CHANCE[65]"):
+        assert f" {name} = {{" in header, name
+    # an f32 table value is written so that it reads back as the same f32
+    assert "0.6499999761581421f" in header  # CORAL's chance 0.65

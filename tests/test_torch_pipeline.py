@@ -1,4 +1,5 @@
-"""The port's featureless slice vs the JAX package's, stage by stage and end to end.
+"""The port's slice vs the JAX package's, stage by stage and end to end, featureless and
+featured.
 
 The JAX ``generate_area_fused(pos_halo, 1, 1, features=False)`` runs ONCE, eagerly in
 exact mode (``jax.disable_jit()`` + ``hashes.exact_scope(True)``: no XLA program is
@@ -7,9 +8,11 @@ intermediates feed each port stage through ``tables.from_jax_outputs``, so every
 sees exactly the JAX stage's inputs.  Tolerances:
 - heightfield, weights, layers: max |diff| <= 1e-3 and >= 99.9% within 1e-5;
 - cave starts / ends / biomes: agreement >= 0.999;
-- blocks: agreement >= 0.9999.
-The CUDA kernels themselves run only on a GPU (``tests/test_torch_cuda.py``; on a
-card ``python3 chip_smoke.py`` checks them at full size).
+- blocks: agreement >= 0.9999, featureless and featured.
+The featured JAX slice is the same run's outputs sent on through the JAX feature half
+(placements, lists, area-level SDF features, decorators), again eagerly.  The CUDA
+kernels themselves run only on a GPU (``tests/test_torch_cuda.py``; on a card
+``python3 chip_smoke.py`` checks them at full size).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import jax
 import jax.numpy as jnp
 
 from mega_minecraft_tpu.ops import hashes as jh
+from mega_minecraft_tpu.terrain import decorators as j_decorators
+from mega_minecraft_tpu.terrain import feature_placement as j_fp
+from mega_minecraft_tpu.terrain import features as j_features
 from mega_minecraft_tpu.terrain import heightfield as j_heightfield
 from mega_minecraft_tpu.terrain import pipeline as j_pipeline
 from mega_minecraft_tpu.world.blocks import Block
@@ -125,18 +131,69 @@ def test_slice_caves_and_origins(jax_area, port_area):
     np.testing.assert_array_equal(port_area["chunk_pos"].numpy(), jax_area["chunk_pos"])
 
 
+@pytest.fixture(scope="module")
+def port_featured():
+    return pipeline.generate_area_fused(_pos_halo(), 1, 1, features=True)
+
+
+def test_featured_slice_blocks(jax_area, port_featured):
+    """``generate_area_fused(..., features=True)`` 1x1 against the JAX one."""
+    a = {k: jnp.asarray(v) for k, v in jax_area.items() if k != "caves"}
+    cv = {k: jnp.asarray(v) for k, v in jax_area["caves"].items()}
+    with jax.disable_jit(), jh.exact_scope(True):
+        pl = j_fp.generate_placements(a["heightfield"], a["biome_weights"], a["layers"], cv["starts"],
+                                      cv["ends"], cv["bottom_biome"], cv["top_biome"], a["chunk_pos"])
+        lists = j_fp.compact_placements(pl, a["chunk_pos"])
+        featured = j_features.apply_features_area(a["blocks"], lists["surface"], lists["cave"],
+                                                  a["chunk_pos"], 1, 1)
+        want = np.asarray(j_decorators.place_decorators_batch(
+            featured, a["heightfield"], a["biome_weights"], cv["starts"], cv["ends"],
+            cv["bottom_biome"], a["chunk_pos"]))
+    assert (np.asarray(featured) != jax_area["blocks"]).sum() > 500, "vacuous: no feature block"
+    assert (want != np.asarray(featured)).sum() > 0, "vacuous: no decorator"
+    assert (port_featured["blocks"].numpy() == want).mean() >= 0.9999
+    for kind in ("surface", "cave"):
+        np.testing.assert_array_equal(port_featured["placements"][kind]["count"].numpy(),
+                                      np.asarray(lists[kind]["count"]))
+
+
 @pytest.mark.parametrize(
     "call",
-    [lambda: pipeline.generate_area_fused(_pos_halo(), 1, 1, features=True),
-     lambda: pipeline.generate_area(0, 0, 1, 1, features=True, device="cpu"),
-     lambda: pipeline.generate_area(0, 0, 24, 24, erode=True, device="cpu"),
-     lambda: generate_demo.main(["--device", "cpu", "--features"]),
+    [lambda: pipeline.generate_area(0, 0, 24, 24, erode=True, device="cpu"),
      lambda: generate_demo.main(["--device", "cpu", "--render", "out.png"])],
-    ids=["fused-features", "area-features", "area-erode", "demo-features", "demo-render"],
+    ids=["area-erode", "demo-render"],
 )
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
+
+
+def test_fused_features_returns_documented_shapes(port_featured, port_area):
+    out = port_featured
+    assert out["blocks"].shape == (1, 16, 16, 384) and out["blocks"].dtype == torch.uint8
+    assert (out["blocks"] != port_area["blocks"]).sum() > 500
+    assert torch.equal(out["heightfield"], port_area["heightfield"])
+    assert set(out["placements"]) == {"surface", "cave"}
+
+
+def test_generate_area_features_returns_placements():
+    out = pipeline.generate_area(ORIGIN_CHUNK[0], ORIGIN_CHUNK[1], 1, 1, features=True, device="cpu")
+    assert out["blocks"].shape == (1, 1, 16, 16, 384) and out["blocks"].dtype == torch.uint8
+    surf, cave = out["placements"]["surface"], out["placements"]["cave"]
+    assert set(surf) == {"feature", "x", "y", "z", "replace", "count"}
+    assert set(cave) == set(surf) | {"height"}
+    assert surf["feature"].shape == (1, 256) and cave["feature"].shape == (1, 1024)
+    assert surf["count"].shape == (1,) and int(cave["count"]) == int((cave["feature"] > 0).sum())
+    assert "placements" not in pipeline.generate_area(0, 0, 1, 1, device="cpu")
+
+
+def test_demo_features_prints_feature_blocks(capsys):
+    argv = ["--device", "cpu", "--features", "--chunks", "1", "--origin", *map(str, ORIGIN_CHUNK)]
+    assert generate_demo.main(argv) == 0
+    text = capsys.readouterr().out
+    assert "feature and decorator blocks" in text
+    tail = text.split("feature and decorator blocks")[1]
+    assert "MUSHROOM" in tail
 
 
 def test_demo_histogram_and_shade_map():
