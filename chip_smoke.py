@@ -25,13 +25,29 @@ Phases, each of which raises (non-zero exit) on failure:
      5x5 chunks must equal those of a featured 11x11 run (both see full 49-chunk
      neighbourhoods), and bedrock at y = 0 in every column;
   6. time the slices, the feature half and every kernel (and its plain version at the
-     5x5 shapes) warm with CUDA events, and compute every kernel's bound.
+     5x5 shapes) warm with CUDA events, and compute every kernel's bound;
+  7. hold K9 (zone erosion) against its plain version bit for bit, with the same sweep
+     counts, and against ``tests/golden/golden_erosion.npz`` at tests/test_golden.py's
+     gate; generate the eroded featured 24x24 area through ``pipeline.generate_area(...,
+     erode=True)`` with the launch counts reset around it, hold K9 on its grid and its
+     layers against the plain chain, and time K9 per zone;
+  8. drain ``scheduler.make_scheduler(1024, radius=8, skip_erosion=True, native=True)``
+     with the counts reset around it (one launch per kernel per stage dispatch): every
+     filled chunk must equal the featured area path in every field; K2s and K7s against
+     their plain versions on their stage's first and largest batch; K7s's window cull
+     against none on every filled chunk;
+  9. drain the reference workload, ``make_scheduler(radius=None, skip_erosion=False,
+     native=True)`` (the radius-40 spiral, 1,089 drawable chunks), with the counts reset
+     around it; replay its first zone erosion through the plain versions; time K2s and K7s
+     at its largest batches against their plain versions; drain it again with the
+     ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share.
 On the card, kernel and plain version run the same libm, so integer outputs must be
 equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5.
 The second-to-last line is the kernels' JSON record (launch counts of the featured 5x5
-run, max |diff| over phases 3 and 5, times and bounds at the 5x5 shapes), the last the
-device record.  ``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas
--v).
+run for the area kernels and of the reference drain for K9, K2s and K7s; max |diff| over
+all checks; times and bounds at the 5x5 shapes, of K9 on the eroded area's grid, and of
+K2s and K7s at the reference drain's largest batches), the last the device record.
+``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas -v).
 
 A kernel's bound is the least time the card could take for the same work: the larger of
 the bytes it must move (each input read once, each output written once; of the
@@ -79,8 +95,28 @@ KERNELS = {  # name -> (source, the JAX program it replaces)
                  "mega_minecraft_tpu/terrain/features.py:173"),
     "decorators": ("mega_minecraft_tpu_torch/csrc/decorators.cu",
                    "mega_minecraft_tpu/terrain/decorators.py:53"),
+    "erosion": ("mega_minecraft_tpu_torch/csrc/erosion.cu",
+                "mega_minecraft_tpu/terrain/erosion.py:59"),
+    "layers_slots": ("mega_minecraft_tpu_torch/csrc/layers.cu",
+                     "mega_minecraft_tpu/terrain/scheduler.py:97"),
+    "features_slots": ("mega_minecraft_tpu_torch/csrc/features.cu",
+                       "mega_minecraft_tpu/terrain/features.py:471"),
 }
-GEN_KERNELS = ("heightfield", "layers", "caves", "fill")  # the featureless slice
+#: the area path's kernels (generate_area_fused(..., features=True)); the featureless slice
+AREA_KERNELS = ("heightfield", "layers", "caves", "fill", "placements", "compact_placements",
+                "feature_streams", "features", "decorators")
+GEN_KERNELS = ("heightfield", "layers", "caves", "fill")
+#: the streaming path's kernels (make_scheduler(...).drain()); erosion only with it on
+STREAM_KERNELS = ("heightfield", "layers_slots", "erosion", "caves", "placements",
+                  "compact_placements", "feature_streams", "fill", "features_slots", "decorators")
+#: per scheduler dispatch, the kernels it launches once each
+DISPATCH_KERNELS = {
+    "dispatch_heightfield": ("heightfield",), "dispatch_layers": ("layers_slots",),
+    "dispatch_erosion": ("erosion",), "dispatch_caves": ("caves",),
+    "dispatch_feature_placements": ("placements", "compact_placements", "feature_streams"),
+    "dispatch_fill": ("fill", "features_slots", "decorators"),
+}
+EROSION_GOLDEN = ROOT / "tests" / "golden" / "golden_erosion.npz"
 
 #: block-grid golden gates (tests/test_golden.py:254-255)
 BLOCKGRID = ROOT / "tests" / "golden" / "golden_blockgrid.npz"
@@ -323,6 +359,463 @@ def op_counts(n, pos_halo, w_halo, out, lists, names):
                                                 cv["starts"], cv["ends"], cv["bottom_biome"],
                                                 out["chunk_pos"]), cols * 400)
     return {k: res[k] for k in names}
+
+
+class DispatchLog:
+    """Wraps the scheduler module's stage dispatchers: each call is logged with its
+    arguments (numpy slot tables) and then runs as before."""
+
+    def __init__(self, sched_mod, hooks=None):
+        self.mod, self.calls, self.saved = sched_mod, [], {}
+        for name in DISPATCH_KERNELS:
+            orig = getattr(sched_mod, name)
+            self.saved[name] = orig
+            hook = (hooks or {}).get(name)
+
+            def fn(t, *args, _name=name, _orig=orig, _hook=hook, **kw):
+                self.calls.append((_name, args, kw))
+                if _hook is not None:
+                    _hook(t, *args, **kw)
+                return _orig(t, *args, **kw)
+
+            setattr(sched_mod, name, fn)
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+    def count(self, name):
+        return sum(1 for c in self.calls if c[0] == name)
+
+    def first(self, name):
+        return next(c for c in self.calls if c[0] == name)
+
+
+def first_and_largest(log, name):
+    """(("first", call), ("largest", call)) of the logged dispatches of one stage."""
+    calls = [c for c in log.calls if c[0] == name]
+    return (("first", calls[0]), ("largest", max(calls, key=lambda c: len(c[1][0]))))
+
+
+def stream_phase(dev, stamp, err, smi):
+    """The radius-8 drain without erosion: filled chunks vs the area path, K2s and K7s vs
+    their plain versions on their stage's first and largest batch, K7s's window cull vs
+    none on every filled chunk."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.terrain import features, layers, pipeline, scheduler as sched
+
+    stamp("phase 8: make_scheduler(1024, radius=8, skip_erosion=True, native=True).drain()")
+    log = DispatchLog(sched)
+    try:
+        s = sched.make_scheduler(1024, 8, skip_erosion=True, native=True, device=dev)
+        check(isinstance(s, sched.NativeTerrainScheduler), "native=True did not give the native core")
+        s.set_player_pos(0.0, 0.0)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = s.drain()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        log.restore()
+    t = s.t
+    n_disp = {name: log.count(name) for name in DISPATCH_KERNELS}
+    print(f"  {frames} frames in {secs:.3f} s, {s.drawable_count()} drawable; dispatches {n_disp}; "
+          f"launches {launches}")
+    check_stream_launches("radius-8 drain", log, launches, erosion_on=False)
+
+    # every filled chunk (|d| <= 4) vs the featured area path over all its sources (|d| <= 7)
+    area = pipeline.generate_area_fused(pipeline.chunk_positions(-8, -8, 17, 17, device=dev), 15, 15,
+                                        features=True)
+    cells = [(dx, dz) for dz in range(-4, 5) for dx in range(-4, 5)]
+    for p_ in cells:
+        check(s.state_at(p_) >= int(sched.ChunkState.FILLED), f"chunk {p_} is not filled")
+    slots = torch.tensor([s.slot_for(p_) for p_ in cells], device=dev)
+    idx = torch.tensor([(dz + 7) * 15 + dx + 7 for dx, dz in cells], device=dev)
+    pairs = [("heightfield", t.d_heightfield, area["heightfield"]),
+             ("biome_weights", t.d_weights, area["biome_weights"]),
+             ("layers", t.d_layers, area["layers"]),
+             ("cave starts", t.d_cave_starts, area["caves"]["starts"].to(torch.int16)),
+             ("cave ends", t.d_cave_ends, area["caves"]["ends"].to(torch.int16)),
+             ("cave bottom", t.d_cave_bottom, area["caves"]["bottom_biome"].to(torch.uint8)),
+             ("cave top", t.d_cave_top, area["caves"]["top_biome"].to(torch.uint8)),
+             ("blocks", t.d_blocks, area["blocks"])]
+    pairs += [(f"surface {k}", v, area["placements"]["surface"][k]) for k, v in t.d_sf.items()]
+    pairs += [(f"cave {k}", v, area["placements"]["cave"][k]) for k, v in t.d_cf.items()]
+    print(f"  the {len(cells)} filled chunks vs the same chunks of the featured 15x15 area:")
+    for name, got, want in pairs:
+        check_equal(f"drain {name}", got[slots], want[idx])
+
+    # K2s and K7s vs their plain versions on the first batch of their stage and on the
+    # largest one (timed on the reference workload's largest batches, phase 9)
+    err["layers_slots"] = 0.0
+    for tag, (_, (sl_np, pos_np, nsl_np), kw) in first_and_largest(log, "dispatch_layers"):
+        sl, pos, nsl = t.upload(sl_np, pos_np, nsl_np)
+        fix = kw["fix_backward"]
+        k_out = kernels.layers_slots(t.d_layers.clone(), t.d_heightfield, t.d_weights, nsl, sl, pos, fix)
+        p_out = layers.layers_slots_plain(t.d_layers.clone(), t.d_heightfield, t.d_weights, nsl, sl,
+                                          pos, fix)
+        rows = sl.long()
+        err["layers_slots"] = max(err["layers_slots"], check_close(
+            f"K2s on the {tag} layers batch ({len(sl_np)} chunks)", k_out[rows], p_out[rows]))
+        check(torch.equal(k_out[rows], t.d_layers[rows]), "K2s: the slot table differs from a rerun")
+
+    # K7s vs its plain version (the JAX semantics, no window)
+    stamp("phase 8b: K7s vs the plain per-chunk application on the first and the largest fill batch")
+    err["features_slots"] = 0.0
+    for tag, (_, (sl_np, pos_np, nb_np), _) in first_and_largest(log, "dispatch_fill"):
+        sl, pos, nsl = t.upload(sl_np, pos_np, nb_np)
+        rows = sl.long()
+        hf, w, ls = t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows]
+        cs, ce, cb = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends", "bottom"))
+        base = kernels.fill(hf, w, ls, cs, ce, pos)
+        got = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
+        want = features.apply_features_slots_plain(base, t.d_sf, t.d_cf, nsl, pos)
+        n_feat = int((want != base).sum())
+        err["features_slots"] = max(err["features_slots"], check_equal(
+            f"K7s on the {tag} fill batch ({len(sl_np)} chunks, {n_feat} feature blocks)", got, want))
+        check(n_feat > 0, f"the {tag} fill batch holds no feature block")
+        check(torch.equal(kernels.decorators(got, hf, w, cs, ce, cb, pos), t.d_blocks[rows]),
+              f"K7s + K8 on the {tag} fill batch differ from the drain's blocks")
+
+    # the window cull against none, on every chunk the drain filled
+    n_chunks = n_diff = 0
+    cull_ms = nocull_ms = 0.0
+    for _, (sl_np, pos_np, nb_np), _ in (c for c in log.calls if c[0] == "dispatch_fill"):
+        sl, pos, nsl = t.upload(sl_np, pos_np, nb_np)
+        rows = sl.long()
+        cs, ce = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends"))
+        base = kernels.fill(t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows], cs, ce, pos)
+        a = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
+        b = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos, cull=False)
+        n_chunks += len(sl_np)
+        n_diff += int((a != b).sum())
+        cull_ms += cuda_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream,
+                                                          t.d_cstream, nsl, pos), 2)
+        nocull_ms += cuda_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream,
+                                                            t.d_cstream, nsl, pos, cull=False), 1)
+    print(f"  K7s with its window cull vs without, every filled chunk ({n_chunks}): {n_diff} voxels "
+          f"differ; {cull_ms:.3f} ms with the cull, {nocull_ms:.3f} ms without, summed over the "
+          f"fill batches")
+    check(n_diff == 0, "K7s's window cull changes the blocks")
+    del s, t, area
+
+
+def time_stream_kernels(dev, t, log, err, times, bounds, smi):
+    """K2s and K7s at the largest batch of their stage in a drain, each against its plain
+    version on the same inputs, timed, with its bound."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.terrain import features, layers
+
+    _, (_, (sl_np, pos_np, nsl_np), kw) = first_and_largest(log, "dispatch_layers")[1]
+    sl, pos, nsl = t.upload(sl_np, pos_np, nsl_np)
+    fix, B, rows = kw["fix_backward"], len(sl_np), sl.long()
+    scratch = t.d_layers.clone()
+    k_out = kernels.layers_slots(scratch, t.d_heightfield, t.d_weights, nsl, sl, pos, fix)[rows]
+    p_out = layers.layers_slots_plain(scratch, t.d_heightfield, t.d_weights, nsl, sl, pos, fix)[rows]
+    err["layers_slots"] = max(err["layers_slots"], check_close(
+        f"K2s on the drain's largest layers batch ({B} chunks)", k_out, p_out))
+    ms = cuda_ms(lambda: kernels.layers_slots(scratch, t.d_heightfield, t.d_weights, nsl, sl, pos, fix),
+                 50)
+    plain_ms = cuda_ms(lambda: layers.layers_slots_plain(scratch, t.d_heightfield, t.d_weights, nsl,
+                                                         sl, pos, fix), 3)
+    # the one indexing call that computes gather_heightfields_batch for the batch
+    zz = torch.arange(18, device=dev)[:, None] + 15
+    xx = torch.arange(18, device=dev)[None, :] + 15
+    flat = (nsl.long().reshape(B, 9)[:, (zz // 16) * 3 + xx // 16] * 256 + (zz % 16) * 16 + xx % 16)
+    hf_flat = t.d_heightfield.reshape(-1)
+    check(torch.equal(hf_flat[flat], t.d_heightfield[nsl.long()].reshape(B, 3, 3, 16, 16)
+                      .permute(0, 1, 3, 2, 4).reshape(B, 48, 48)[:, 15:33, 15:33]),
+          "the indexing gather differs from gather_heightfields_batch")
+    gather_ms = cuda_ms(lambda: hf_flat[flat], 50)
+    times["layers_slots"] = (ms, plain_ms)
+    bounds["layers_slots"] = bound(B * (18 * 18 * 4 + 24 * 256 * 4 + 8 + 40) + B * 20 * 256 * 4,
+                                   B * 256 * (960 + 11 * fbm2_ops(5) + 400))
+    print(f"  K2s on {smi}: {ms:.4f} ms for {B} chunks, plain {plain_ms:.3f} ms, bound "
+          f"{bounds['layers_slots'][0]:.4g} ms by {bounds['layers_slots'][1]}; the gather as one "
+          f"indexing call (gather_heightfields_batch's library time): {gather_ms:.4f} ms")
+
+    _, (_, (sl_np, pos_np, nb_np), _) = first_and_largest(log, "dispatch_fill")[1]
+    sl, pos, nsl = t.upload(sl_np, pos_np, nb_np)
+    rows = sl.long()
+    hf, w, ls = t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows]
+    cs, ce, cb = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends", "bottom"))
+    base = kernels.fill(hf, w, ls, cs, ce, pos)
+    got = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
+    t1 = time.perf_counter()
+    want = features.apply_features_slots_plain(base, t.d_sf, t.d_cf, nsl, pos)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    n_feat = int((want != base).sum())
+    err["features_slots"] = max(err["features_slots"], check_equal(
+        f"K7s on the drain's largest fill batch ({len(sl_np)} chunks, {n_feat} feature blocks)", got,
+        want))
+    check(torch.equal(kernels.decorators(got, hf, w, cs, ce, cb, pos), t.d_blocks[rows]),
+          "K7s + K8 on the drain's largest fill batch differ from the drain's blocks")
+    ms = cuda_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl,
+                                                pos), 20)
+    times["features_slots"] = (ms, plain_s * 1e3)
+    bounds["features_slots"] = bound(*k7s_counts(t, nsl, pos, base))
+    print(f"  K7s on {smi}: {ms:.4f} ms for {len(sl_np)} chunks, plain {plain_s * 1e3:.1f} ms, bound "
+          f"{bounds['features_slots'][0]:.4g} ms by {bounds['features_slots'][1]}")
+
+
+def reference_phase(dev, stamp, err, times, bounds, smi):
+    """The reference workload: the radius-40 spiral with erosion, drained twice (clean,
+    then with the StageTimer); one recorded zone erosion replayed through the plain
+    versions.  Returns the launch counts of the clean drain."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.terrain import erosion, scheduler as sched
+    from mega_minecraft_tpu_torch.utils.profiling import StageTimer
+
+    stamp("phase 9: the reference workload, make_scheduler(radius=None, skip_erosion=False, "
+          "native=True).drain()")
+    replay = {}
+
+    def keep_first_zone(t, gslots_np):
+        if not replay:
+            rows = torch.as_tensor(gslots_np.reshape(-1), device=dev).long()
+            replay.update(gslots=gslots_np, rows=rows, layers=t.d_layers[rows].clone(),
+                          hf=t.d_heightfield[rows].clone())
+
+    log = DispatchLog(sched, hooks={"dispatch_erosion": keep_first_zone})
+    try:
+        s = sched.make_scheduler(radius=None, skip_erosion=False, native=True, device=dev)
+        s.set_player_pos(0.0, 0.0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = s.drain()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        log.restore()
+    state = s.core.snapshot()[0]
+    filled = int((state >= int(sched.ChunkState.FILLED)).sum())
+    zones = log.count("dispatch_erosion")
+    print(f"  {frames} frames in {secs:.3f} s on {smi} ({frames / secs:.1f} frames/s): "
+          f"{s.drawable_count()} drawable chunks, {filled} filled, {zones} zones eroded, "
+          f"{len(log.calls)} dispatches; launches {launches}")
+    check_stream_launches("radius-40 drain", log, launches, erosion_on=True)
+    check(s.drawable_count() == 1089, f"{s.drawable_count()} drawable chunks, not 1,089")
+    # the first zone's erosion replayed through the plain versions
+    half = 6
+    local = torch.arange(576, dtype=torch.int32, device=dev).reshape(24, 24)
+    want = erosion.erode_zone_slots_plain(replay["layers"].clone(), replay["hf"], local)
+    core = local[half:half + 12, half:half + 12].reshape(-1).long()
+    got = s.t.d_layers[replay["rows"][core]]
+    n_diff = int((got.view(torch.int32) != want[core].view(torch.int32)).sum())
+    print(f"  the first zone eroded (grid corner slot {int(replay['gslots'][0, 0])}) replayed through "
+          f"the plain erosion and fix: {n_diff} of {got.numel()} core layer values differ")
+    check(n_diff == 0, "the slot table's eroded core differs from the plain replay")
+    moved = float((got[:, 12:] != replay["layers"][core][:, 12:]).double().mean())
+    print(f"  {moved:.4f} of the core's eroded layer starts moved")
+    check(moved > 0.01, "the replayed zone's erosion changed almost nothing")
+    time_stream_kernels(dev, s.t, log, err, times, bounds, smi)
+    del s
+    torch.cuda.empty_cache()
+
+    s = sched.make_scheduler(radius=None, skip_erosion=False, native=True, device=dev)
+    s.timer = StageTimer(dev)
+    s.set_player_pos(0.0, 0.0)
+    t0 = time.perf_counter()
+    frames2 = s.drain()
+    secs2 = time.perf_counter() - t0
+    rep = s.timer.report()
+    print(f"  again with the StageTimer (synchronising each stage): {frames2} frames in {secs2:.3f} s; "
+          f"per stage (s, calls): " + ", ".join(f"{k} {v['seconds']:.4f} / {v['calls']}"
+                                               for k, v in rep.items()))
+    check(frames2 == frames and s.drawable_count() == 1089, "the timed drain differs")
+    del s
+    torch.cuda.empty_cache()
+
+    # the device's busy time in a third drain, traced by torch.profiler: the union of the
+    # kernels' and copies' spans on the card, against the clean drain's wall time
+    s = sched.make_scheduler(radius=None, skip_erosion=False, native=True, device=dev)
+    s.set_player_pos(0.0, 0.0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        s.drain()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if spans:
+        busy, reach, by_name = 0.0, float("-inf"), {}
+        for a, b, name in spans:
+            busy += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        print(f"  traced drain: {len(spans)} device events, device busy {busy / 1e6:.4f} s of the "
+              f"clean drain's {secs:.4f} s, idle share {1 - busy / 1e6 / secs:.1%}; by name (s): "
+              + ", ".join(f"{k} {v / 1e6:.4f}" for k, v in top))
+    else:
+        print("  traced drain: the profiler recorded no device events; device busy: not measured")
+    del s, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_stream_launches(tag, log, launches, erosion_on):
+    """One launch of each of a dispatch's kernels per dispatch; no area-path kernel."""
+    for name, ks in DISPATCH_KERNELS.items():
+        n = log.count(name)
+        check((n > 0) == (erosion_on or name != "dispatch_erosion"), f"{tag}: {n} {name} calls")
+        for k in ks:
+            check(launches[k] == n, f"{tag}: kernel {k} launched {launches[k]} times for {n} {name}")
+    for k in ("layers", "features"):
+        check(launches[k] == 0, f"{tag}: the area kernel {k} launched {launches[k]} times")
+
+
+def k7s_counts(t, nslots, pos, base_blocks):
+    """(bytes, f32 operations) K7s needs for one fill batch: the blocks read and written
+    once, the visible gathered entries' fields and streams read once; one SDF evaluation
+    per voxel of the chunk in a visible entry's window and height bounds whose terrain
+    block passes its test (as K7's bound counts them)."""
+    from mega_minecraft_tpu_torch.kernels import CAVE_FIELDS, STREAM_LEN, SURFACE_FIELDS
+    from mega_minecraft_tpu_torch.terrain import feature_placement as fp, features
+    from mega_minecraft_tpu_torch.world.blocks import Block
+
+    nsl = nslots.cpu().numpy()
+    P = pos.cpu().numpy()
+    B = nsl.shape[0]
+    air = torch.zeros((B, 16, 16, 385), dtype=torch.int16, device=base_blocks.device)
+    air[..., 1:] = torch.cumsum((base_blocks == int(Block.AIR)).to(torch.int16), -1, dtype=torch.int16)
+    air = air.cpu().numpy()
+    rows = torch.as_tensor(np.unique(nsl), device=base_blocks.device).long()
+    row_of = {int(r): i for i, r in enumerate(rows.tolist())}
+    ops = n_vis = 0
+    fields_b = 0
+    for kind, d, table, cave, cap, K in (
+            ("surface", t.d_sf, SDF_OPS_SURFACE, False, fp.MAX_GATHERED_FEATURES, 256),
+            ("cave", t.d_cf, SDF_OPS_CAVE, True, fp.MAX_GATHERED_CAVE_FEATURES, 1024)):
+        L = {k: v[rows].cpu().numpy() for k, v in d.items()}
+        half = features.window_half_widths(cave)
+        bnd = features.fd.CAVE_FEATURE_HEIGHT_BOUNDS if cave else features.fd.FEATURE_HEIGHT_BOUNDS
+        nf = len(CAVE_FIELDS if cave else SURFACE_FIELDS)
+        for b in range(B):
+            ox, oz = int(P[b, 0]), int(P[b, 1])
+            gathered = 0
+            for r in range(49):
+                i = row_of[int(nsl[b, r])]
+                n = min(int(L["count"][i]), K, max(cap - gathered, 0))
+                gathered += min(int(L["count"][i]), K)
+                n_vis += n
+                fields_b += n * (nf * 4 + STREAM_LEN * 4)
+                for k in range(n):
+                    f = int(L["feature"][i, k])
+                    px, py, pz = (int(L[c][i, k]) for c in "xyz")
+                    h = int(L["height"][i, k]) if cave else 0
+                    x0, x1 = max(px - ox - int(half[f, 0]), 0), min(px - ox + int(half[f, 1]), 15)
+                    z0, z1 = max(pz - oz - int(half[f, 0]), 0), min(pz - oz + int(half[f, 1]), 15)
+                    y0, y1 = max(py + int(bnd[f, 0]), 0), min(py + h + int(bnd[f, 1]), 383)
+                    if x0 > x1 or z0 > z1 or y0 > y1:
+                        continue
+                    if int(L["replace"][i, k]):
+                        vox = (x1 - x0 + 1) * (z1 - z0 + 1) * (y1 - y0 + 1)
+                    else:
+                        win = air[b, z0 : z1 + 1, x0 : x1 + 1]
+                        vox = int((win[..., y1 + 1].astype(np.int64) - win[..., y0]).sum())
+                    ops += vox * table[f]
+    n_bytes = 2 * B * 98304 + fields_b + nbytes(nslots, pos) + B * 49 * 2 * 4
+    print(f"    K7s on the batch: {B} chunks, {n_vis} visible gathered entries, {ops:.4g} SDF "
+          f"operations needed")
+    return n_bytes, ops
+
+
+def erosion_phase(dev, stamp, err, times, bounds, smi):
+    """K9 vs its plain version and the reference's eroded grids; the eroded 24x24 area."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.terrain import erosion, pipeline
+    from mega_minecraft_tpu_torch.world.blocks import Block
+
+    stamp("phase 7: K9 zone erosion vs the plain version and tests/golden/golden_erosion.npz")
+    ge = np.load(EROSION_GOLDEN)
+    err["erosion"] = 0.0
+    sweeps_of = {}
+    for key in ("0_0", "400_-560"):
+        grid = torch.as_tensor(ge[f"input_{key}"], device=dev)
+        got, iters = kernels.erode_zone(grid)
+        sweeps = []
+        want = erosion.erode_zone_plain(grid, sweeps)
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        print(f"  K9 {key}: {n_diff} of {got.numel()} values differ from the plain version (bits); "
+              f"sweeps per layer, top first: kernel {iters.tolist()}, plain {sweeps}")
+        check(n_diff == 0, f"K9 {key}: {n_diff} values differ from the plain version")
+        check(iters.tolist() == sweeps, f"K9 {key}: sweep counts {iters.tolist()} != {sweeps}")
+        moved = float(((want[:8] - grid[:8]).abs() > 1e-6).double().mean())
+        check(moved > 0.01, f"K9 {key}: erosion moved only {moved:.4f} of the starts")
+        ref = torch.as_tensor(ge[f"eroded_{key}"], device=dev)
+        d = float((got[:8] - ref[:8]).abs().max())
+        print(f"  K9 {key} vs eroded_{key}: max |diff| {d:g} (gate 2e-3), heightfield equal: "
+              f"{bool(torch.equal(got[8], ref[8]))}; {moved:.4f} of the starts moved")
+        check(d <= 2e-3 and torch.equal(got[8], ref[8]), f"K9 {key}: outside the golden gate")
+        sweeps_of[key] = sweeps
+
+    stamp("phase 7b: generate_area(0, 0, 24, 24, erode=True, features=True)")
+    kernels.reset_launch_counts()
+    area = pipeline.generate_area(0, 0, 24, 24, erode=True, features=True, device=dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"  launch counts of the eroded featured 24x24 run: {launches}")
+    for name in KERNELS:
+        want = int(name in AREA_KERNELS or name == "erosion")
+        check(launches[name] == want, f"kernel {name}: {launches[name]} launches in the eroded run")
+    b = area["blocks"]
+    check(tuple(b.shape) == (24, 24, 16, 16, 384) and bool(torch.isfinite(area["layers"]).all()),
+          "eroded area: shape or non-finite layers")
+    check(bool((b[..., 0] == int(Block.BEDROCK)).all()), "eroded area: a column lacks bedrock")
+    # K9 on the area's own gathered grid, and the area's layers vs the plain stage chain
+    pos_h = pipeline.chunk_positions(-1, -1, 26, 26, device=dev)
+    hf_h, w_h = kernels.heightfield(pos_h)
+    st = kernels.layers(hf_h, w_h, pos_h, 24, 24, fix_backward=False)
+    grid = erosion.gather_zone_layers(st["layers"].reshape(24, 24, 20, 16, 16),
+                                      st["heightfield"].reshape(24, 24, 16, 16)).contiguous()
+    got, iters = kernels.erode_zone(grid)
+    sweeps = []
+    want = erosion.erode_zone_plain(grid, sweeps)
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    print(f"  K9 on the area's gathered grid: {n_diff} values differ from the plain version; "
+          f"sweeps {iters.tolist()} (plain {sweeps})")
+    check(n_diff == 0 and iters.tolist() == sweeps, "K9 on the area's grid differs from the plain version")
+    gs = torch.arange(576, dtype=torch.int32, device=dev).reshape(24, 24)
+    want_l = erosion.erode_zone_slots_plain(st["layers"].clone(), st["heightfield"], gs, fix_all=True)
+    n_diff = int((area["layers"].view(torch.int32) != want_l.view(torch.int32)).sum())
+    print(f"  eroded area layers vs K2 (no fix) -> plain erosion + write-back + fix: {n_diff} differ")
+    check(n_diff == 0, "the eroded area's layers differ from the plain stage chain")
+    fixed = kernels.layers(hf_h, w_h, pos_h, 24, 24)["layers"].reshape(24, 24, 20, 16, 16)
+    el = area["layers"].reshape(24, 24, 20, 16, 16)
+    core = torch.zeros((24, 24), dtype=torch.bool, device=dev)
+    core[6:18, 6:18] = True
+    check(torch.equal(el[~core], fixed[~core]), "erosion changed a chunk outside the zone's core")
+    moved = float((el[core] != fixed[core]).double().mean())
+    print(f"  outside the core the layers equal the uneroded area's; {moved:.4f} of the core's differ")
+    check(moved > 0.01, "erosion changed almost nothing in the core")
+
+    reps = 20
+    ms = cuda_ms(lambda: kernels.erode_zone(grid), reps)
+    ms_slots = cuda_ms(lambda: kernels.erode_zone_slots(st["layers"].clone(), st["heightfield"], gs,
+                                                        True), reps)
+    plain_ms = cuda_ms(lambda: erosion.erode_zone_plain(grid), 2)
+    area_ms = cuda_ms(lambda: pipeline.generate_area(0, 0, 24, 24, erode=True, features=True,
+                                                     device=dev), 3)
+    # the kernel's own sweep counter, read after the timed runs
+    for key, sweeps_k in sweeps_of.items():
+        _, iters = kernels.erode_zone(torch.as_tensor(ge[f"input_{key}"], device=dev))
+        print(f"  K9 sweeps on {key} after the timed runs: {iters.tolist()} = {sum(iters.tolist())}")
+        check(iters.tolist() == sweeps_k, f"K9 {key}: sweep counts changed")
+    total = sum(sweeps)
+    ncol = 384 * 384
+    b9 = bound(2 * 9 * ncol * 4, total * ncol * 40)  # the grid read and written once
+    print(f"  K9 on {smi}: {ms:.3f} ms per zone on the area's grid ({total} dependent sweeps, "
+          f"{ms / total * 1e3:.1f} us each), {ms_slots:.3f} ms through the slot table with the "
+          f"write-back (cloned layers included); plain {plain_ms:.3f} ms; bound {b9[0]:.4g} ms by "
+          f"{b9[1]}; golden sweeps {sweeps_of}; eroded featured 24x24 area {area_ms:.3f} ms = "
+          f"{576 / (area_ms / 1e3):.1f} chunks/s")
+    times["erosion"] = (ms, plain_ms)
+    bounds["erosion"] = b9
 
 
 def main(argv):
@@ -578,7 +1071,8 @@ def main(argv):
     launches = kernels.launch_counts()
     print(f"  launch counts of the featured 5x5 run: {launches}")
     for name in KERNELS:
-        check(launches[name] == 1, f"kernel {name}: {launches[name]} launches in the 5x5 run, not 1")
+        want = int(name in AREA_KERNELS)
+        check(launches[name] == want, f"kernel {name}: {launches[name]} launches in the 5x5 run, not {want}")
     check_area(5, out5, int(fill.Block.BEDROCK))
 
     kernels.reset_launch_counts()
@@ -642,7 +1136,9 @@ def main(argv):
     launches33 = kernels.launch_counts()
     print(f"  launch counts of the featured 33x33 run: {launches33}")
     for name in KERNELS:
-        check(launches33[name] == 1, f"kernel {name}: {launches33[name]} launches in the 33x33 run, not 1")
+        want = int(name in AREA_KERNELS)
+        check(launches33[name] == want, f"kernel {name}: {launches33[name]} launches in the 33x33 run, "
+              f"not {want}")
     check_area(33, out33, int(fill.Block.BEDROCK))
     # a featured 5x5 area lacks the placements of chunks beyond its edge, so the featured
     # cross-size check compares two areas that both hold every inner chunk's 49 sources
@@ -719,25 +1215,38 @@ def main(argv):
         times[("slice", n)] = (full_ms, None)
         counted = {"base_blocks": base_blocks, "caves": cv, "placement_grids": grids, **st}
         bounds[n] = {k: bound(*v) for k, v in
-                     op_counts(n, pos, w, counted, lists, list(KERNELS)).items()}
+                     op_counts(n, pos, w, counted, lists, AREA_KERNELS).items()}
         print(f"  {n}x{n} ({n * n} chunks) on {smi}: featured slice {full_ms:.3f} ms = "
               f"{n * n / (full_ms / 1e3):.1f} chunks/s; featureless slice {base_ms:.3f} ms = "
               f"{n * n / (base_ms / 1e3):.1f} chunks/s; feature half {half_ms:.3f} ms "
               f"({half_ms / full_ms:.1%} of the featured slice)")
-        for name in KERNELS:
+        for name in AREA_KERNELS:
             k, pl_ms = times[(name, n)]
             b_ms, b_by = bounds[n][name]
             plain_s = f", plain {pl_ms:.3f} ms ({pl_ms / k:.1f}x)" if pl_ms is not None else ""
             print(f"    {name:18s} kernel {k:.3f} ms, bound {b_ms:.4g} ms by {b_by} "
                   f"({b_ms / k:.1%} of it){plain_s}")
 
-    report = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": times[(name, 5)][0], "plain_ms": times[(name, 5)][1],
-         "bound_ms": bounds[5][name][0], "bound_by": bounds[5][name][1], "library_ms": None}
-        for name, (src, rep) in KERNELS.items()
-    ]}
+    # -- 7-9. erosion, the streaming path, the reference workload ------------------------
+    stream_times, stream_bounds = {}, {}
+    erosion_phase(dev, stamp, err, stream_times, stream_bounds, smi)
+    stream_phase(dev, stamp, err, smi)
+    stream_launches = reference_phase(dev, stamp, err, stream_times, stream_bounds, smi)
+
+    # launches: the area kernels' from the featured 5x5 run, the streaming kernels' from the
+    # reference workload's drain; times and bounds at the shapes of those paths
+    def row(name):
+        if name in AREA_KERNELS:
+            return (launches[name], times[(name, 5)], bounds[5][name])
+        return (stream_launches[name], stream_times[name], stream_bounds[name])
+
+    report = {"kernels": []}
+    for name, (src, rep) in KERNELS.items():
+        n_launch, (ms, plain_ms), (b_ms, b_by) = row(name)
+        report["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "mega_minecraft_tpu" or m.startswith("mega_minecraft_tpu.")]
     check(not bad, f"jax or the JAX package was imported: {bad[:5]}")

@@ -1,0 +1,53 @@
+"""Configuration: one dataclass tree in place of the reference's compile-time defines.
+
+The port's own copy of the part of ``mega_minecraft_tpu/config.py`` that the port reads
+(stdlib only), so that the port imports nothing of the JAX package: the streaming
+scheduler's budget (read by ``terrain/scheduler.py``).  Fields keep their names,
+defaults and ``MMTPU_<SECTION>_<FIELD>`` environment overrides; later slices add the
+sections they read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+
+
+@dataclass
+class TerrainConfig:
+    chunk_vbos_gen_radius: int = 16  # terrain.cpp:65
+    zone_size: int = 12  # terrain.hpp:17
+    max_action_time_per_frame: int = 500  # terrain.cpp:71
+    total_action_time_per_second: int = 30000  # terrain.cpp:72
+    stage_batch: int = 16  # at most this many chunks per stage dispatch
+
+
+@dataclass
+class Config:
+    terrain: TerrainConfig = field(default_factory=TerrainConfig)
+
+
+def _apply_env(cfg, prefix: str):
+    for f in dataclasses.fields(cfg):
+        sub = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(sub):
+            _apply_env(sub, f"{prefix}{f.name.upper()}_")
+            continue
+        key = f"{prefix}{f.name.upper()}"
+        if key in os.environ:
+            setattr(cfg, f.name, type(sub)(os.environ[key]))
+
+
+def load_config(**overrides) -> Config:
+    """Config from defaults <- MMTPU_* environment <- keyword overrides
+    (dots address nested fields: load_config(**{"terrain.stage_batch": 8}))."""
+    cfg = Config()
+    _apply_env(cfg, "MMTPU_")
+    for key, val in overrides.items():
+        obj = cfg
+        *path, leaf = key.split(".")
+        for part in path:
+            obj = getattr(obj, part)
+        setattr(obj, leaf, val)
+    return cfg

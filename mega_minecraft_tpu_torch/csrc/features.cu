@@ -1,7 +1,11 @@
-// K7: area-level feature application, and its pre-kernel, the per-placement streams.
+// K7: area-level feature application; K7s: the streaming scheduler's per-chunk feature
+// application; and their pre-kernel, the per-placement streams.
 //
 // K7 replaces mega_minecraft_tpu/terrain/features.py:173,431 apply_placements_area /
 // apply_features_area (jitted XLA on the TPU, together with all of features_sdf.py).
+// K7s replaces features.py:91,461,471 apply_placements / apply_features_chunk /
+// apply_features_batch with feature_placement.py:333,349 gather_from_neighborhood(_batch),
+// the feature step of the scheduler's _stage_fill (scheduler.py:150-156).
 // The JAX program inverted the reference's per-block loop into per-type batches of
 // windowed whole-volume SDF evaluations with a packed min-key combine, because SIMD
 // lanes cannot leave a loop early.  Threads can: here the loop is the reference's own.
@@ -26,6 +30,16 @@
 //
 // The 64 draws of a placement's stream do not depend on the voxel: the pre-kernel
 // writes them once per list entry ([B, K, 64] f32) and K7 reads them (broadcast loads).
+//
+// K7s is the same block program with another source of lists.  A chunk of the batch
+// reads its 49 sources through a [B, 49] slot table (GATHER_OFFSETS order) from the
+// scheduler's slot table of lists, true counts and streams ([capacity, K(, 64)]).  Its
+// gathered list ranks the valid entries the stored lists hold, min(count, K) per source
+// (valid entries come first), where the area path ranks by the true counts; the two
+// differ only for a list that overflows its K.  The JAX per-chunk program evaluates
+// every gathered entry over the whole chunk; K7s keeps K7's window cull (template CULL),
+// which chip_smoke.py holds equal to the unculled kernel on every chunk it streams and
+// to the plain version on the first batch.
 //
 // Bound on the H100: arithmetic and latency, not bytes (K7 must move 2 bytes per voxel,
 // one read and one write).  The SDFs run for the few voxels inside a placement's window
@@ -96,23 +110,39 @@ MMT_FN bool walk_candidates(const PlacementLists& L, const int* cand, int n_cand
   return false;
 }
 
+// the sources of a consumer chunk of an area: the chunks at GATHER_OFFSETS inside the
+// area, ranked by their true counts (a source beyond the area has no placements)
+struct AreaSources {
+  int vx, vz, ncx, ncz;
+  MMT_FN void get(int r, const int* count, int K, int& src, int& cnt) const {
+    int sx = vx + GATHER_OFFSETS[r][0], sz = vz + GATHER_OFFSETS[r][1];
+    bool inside = sx >= 0 && sx < ncx && sz >= 0 && sz < ncz;
+    src = inside ? sz * ncx + sx : 0;
+    cnt = inside ? count[src] : 0;
+  }
+};
+
+// the sources of a chunk of the scheduler's batch: its 49 slots, ranked by the valid
+// entries their stored lists hold
+struct SlotSources {
+  const int* slots;  // [49]
+  MMT_FN void get(int r, const int* count, int K, int& src, int& cnt) const {
+    src = slots[r];
+    int c = count[src];
+    cnt = c < K ? c : K;
+  }
+};
+
 // the first placement of one kind (surface / cave) that claims the voxel, if any; every
 // thread of the block calls it (it holds barriers), `skip` voxels only take part
-template <bool CAVE>
-MMT_FN bool first_hit(const PlacementLists& L, int K, GatherScratch& sh, int vx, int vz, int ncx,
-                      int ncz, int wx, int wy, int wz, bool terrain_is_air, bool skip, int& block) {
+template <bool CAVE, bool CULL, class Sources>
+MMT_FN bool first_hit(const PlacementLists& L, int K, GatherScratch& sh, const Sources& S, int wx,
+                      int wy, int wz, bool terrain_is_air, bool skip, int& block) {
   const int cap = CAVE ? MAX_GATHERED_CAVE_FEATURES : MAX_GATHERED_FEATURES;
   const int n_types = CAVE ? NUM_CAVE_FEATURES : NUM_FEATURES;
   int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __syncthreads();  // the scratch may still be read by the previous pass
-  if (tid < NUM_GATHER_OFFSETS) {
-    // a source beyond the area has no placements
-    int sx = vx + GATHER_OFFSETS[tid][0], sz = vz + GATHER_OFFSETS[tid][1];
-    bool inside = sx >= 0 && sx < ncx && sz >= 0 && sz < ncz;
-    int sb = inside ? sz * ncx + sx : 0;
-    sh.src[tid] = sb;
-    sh.count[tid] = inside ? L.count[sb] : 0;
-  }
+  if (tid < NUM_GATHER_OFFSETS) S.get(tid, L.count, K, sh.src[tid], sh.count[tid]);
   __syncthreads();
   if (tid == 0) {
     int gathered = 0, total = 0;  // index in the gathered list; visible entries so far
@@ -143,7 +173,7 @@ MMT_FN bool first_hit(const PlacementLists& L, int K, GatherScratch& sh, int vx,
       if (feat > 0 && feat < n_types) {
         int fx = wx - L.x[e], fz = wz - L.z[e];
         const int* win = CAVE ? CAVE_WINDOW[feat] : SURFACE_WINDOW[feat];
-        keep = fx >= -win[0] && fx <= win[1] && fz >= -win[0] && fz <= win[1];
+        keep = !CULL || (fx >= -win[0] && fx <= win[1] && fz >= -win[0] && fz <= win[1]);
       }
     }
     // append the kept entries to the buffer in gathered order
@@ -169,24 +199,44 @@ MMT_FN bool first_hit(const PlacementLists& L, int K, GatherScratch& sh, int vx,
   return found;
 }
 
-__global__ void __launch_bounds__(Y_SIZE) features_kernel(
-    const unsigned char* __restrict__ blocks, PlacementLists surf, PlacementLists cave,
-    const int* __restrict__ pos, int ncx, int ncz, unsigned char* __restrict__ out) {
-  __shared__ GatherScratch sh;
+// one voxel (block (b, col), thread y): surface placements first, then cave placements
+// for the voxels no surface placement took; both test the terrain block
+template <bool CULL, class Sources>
+MMT_FN void feature_voxel(const unsigned char* blocks, const PlacementLists& surf,
+                          const PlacementLists& cave, const Sources& S, GatherScratch& sh,
+                          const int* pos, unsigned char* out) {
   int bc = blockIdx.x;  // b * 256 + col
   int b = bc >> 8, col = bc & 255;
   int y = threadIdx.x;
   int wx = pos[2 * b] + (col & 15), wz = pos[2 * b + 1] + (col >> 4);
-  int vx = b % ncx, vz = b / ncx;
   size_t o = (size_t)bc * Y_SIZE + y;
   int terrain = blocks[o];
   bool is_air = terrain == BLOCK_AIR;
   int s_block = 0, c_block = 0;
-  bool s_hit = first_hit<false>(surf, CHUNK_FEATURE_CAP, sh, vx, vz, ncx, ncz, wx, y, wz, is_air,
-                                false, s_block);
-  bool c_hit = first_hit<true>(cave, CHUNK_CAVE_FEATURE_CAP, sh, vx, vz, ncx, ncz, wx, y, wz, is_air,
-                               s_hit, c_block);
+  bool s_hit = first_hit<false, CULL>(surf, CHUNK_FEATURE_CAP, sh, S, wx, y, wz, is_air, false,
+                                      s_block);
+  bool c_hit = first_hit<true, CULL>(cave, CHUNK_CAVE_FEATURE_CAP, sh, S, wx, y, wz, is_air, s_hit,
+                                     c_block);
   out[o] = (unsigned char)(s_hit ? s_block : (c_hit ? c_block : terrain));
+}
+
+__global__ void __launch_bounds__(Y_SIZE) features_kernel(
+    const unsigned char* __restrict__ blocks, PlacementLists surf, PlacementLists cave,
+    const int* __restrict__ pos, int ncx, int ncz, unsigned char* __restrict__ out) {
+  __shared__ GatherScratch sh;
+  int b = blockIdx.x >> 8;
+  AreaSources S = {b % ncx, b / ncx, ncx, ncz};
+  feature_voxel<true>(blocks, surf, cave, S, sh, pos, out);
+}
+
+// K7s: lists, counts and streams are the slot table's; nslots [B, 49]
+template <bool CULL>
+__global__ void __launch_bounds__(Y_SIZE) features_slots_kernel(
+    const unsigned char* __restrict__ blocks, PlacementLists surf, PlacementLists cave,
+    const int* __restrict__ nslots, const int* __restrict__ pos, unsigned char* __restrict__ out) {
+  __shared__ GatherScratch sh;
+  SlotSources S = {nslots + (blockIdx.x >> 8) * NUM_GATHER_OFFSETS};
+  feature_voxel<CULL>(blocks, surf, cave, S, sh, pos, out);
 }
 
 extern "C" int mmt_feature_streams(const int* sx, const int* sy, const int* sz, const int* cx,
@@ -209,5 +259,23 @@ extern "C" int mmt_features(const unsigned char* blocks, const int* s_feature, c
   PlacementLists cave = {c_feature, c_x, c_y, c_z, c_replace, c_height, c_count, c_streams};
   features_kernel<<<ncx * ncz * 256, Y_SIZE, 0, (cudaStream_t)stream>>>(blocks, surf, cave, pos,
                                                                         ncx, ncz, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mmt_features_slots(const unsigned char* blocks, const int* s_feature, const int* s_x,
+                                  const int* s_y, const int* s_z, const int* s_replace,
+                                  const int* s_count, const float* s_streams, const int* c_feature,
+                                  const int* c_x, const int* c_y, const int* c_z,
+                                  const int* c_replace, const int* c_height, const int* c_count,
+                                  const float* c_streams, const int* nslots, const int* pos, int B,
+                                  int cull, unsigned char* out, void* stream) {
+  PlacementLists surf = {s_feature, s_x, s_y, s_z, s_replace, nullptr, s_count, s_streams};
+  PlacementLists cave = {c_feature, c_x, c_y, c_z, c_replace, c_height, c_count, c_streams};
+  if (cull)
+    features_slots_kernel<true><<<B * 256, Y_SIZE, 0, (cudaStream_t)stream>>>(blocks, surf, cave,
+                                                                            nslots, pos, out);
+  else
+    features_slots_kernel<false><<<B * 256, Y_SIZE, 0, (cudaStream_t)stream>>>(blocks, surf, cave,
+                                                                             nslots, pos, out);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Launch wrappers of the hand-written CUDA kernels (K1-K8 and K7's stream pre-kernel).
+"""Launch wrappers of the hand-written CUDA kernels (K1-K9, K2s, K7s and K7's stream
+pre-kernel).
 
 Each wrapper checks device, dtype, shape and contiguity of its inputs, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if the C
@@ -19,7 +20,8 @@ from . import _build
 
 #: launches per kernel since the last reset (plain integers, read by chip_smoke.py)
 LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0, "placements": 0,
-            "compact_placements": 0, "feature_streams": 0, "features": 0, "decorators": 0}
+            "compact_placements": 0, "feature_streams": 0, "features": 0, "decorators": 0,
+            "erosion": 0, "layers_slots": 0, "features_slots": 0}
 
 N_BIOMES = bio.NUM_BIOMES
 N_MAT = bio.NUM_MATERIALS
@@ -88,10 +90,11 @@ def heightfield(chunk_pos):
     return hf, w
 
 
-def layers(hf_halo, w_halo, pos_halo, ncx: int, ncz: int):
+def layers(hf_halo, w_halo, pos_halo, ncx: int, ncz: int, fix_backward: bool = True):
     """K2: halo'd heightfield / weights / origins of a (ncz+2) x (ncx+2) grid ->
-    dict(layers [B,20,16,16] fixed, heightfield, biome_weights, chunk_pos) of the
-    B = ncz*ncx inner chunks (the 18x18 gather is folded into the kernel)."""
+    dict(layers [B,20,16,16] (fixed if ``fix_backward``), heightfield, biome_weights,
+    chunk_pos) of the B = ncz*ncx inner chunks (the 18x18 gather is folded into the
+    kernel)."""
     dev = hf_halo.device
     H = (ncz + 2) * (ncx + 2)
     B = ncz * ncx
@@ -111,9 +114,70 @@ def layers(hf_halo, w_halo, pos_halo, ncx: int, ncz: int):
                     _p(hf_halo), _p(w_halo), _p(pos_halo), ncx, ncz,
                     _p(tb.biome_material_weights), _p(tb.material_thickness),
                     _p(tb.material_amplitude_or_tan_repose), _p(tb.material_scale_or_max_slope),
-                    _p(tb.dir_vecs_2d), _p(out["layers"]), _p(out["heightfield"]),
-                    _p(out["biome_weights"]), _p(out["chunk_pos"]))
+                    _p(tb.dir_vecs_2d), int(fix_backward), _p(out["layers"]),
+                    _p(out["heightfield"]), _p(out["biome_weights"]), _p(out["chunk_pos"]))
     return out
+
+
+def layers_slots(d_layers, d_hf, d_w, nslots, slots, pos, fix_backward: bool):
+    """K2s: the layers of the batch's B chunks written into the slot table ``d_layers``
+    [C, 20, 16, 16] in place, from ``d_hf`` [C, 16, 16] through ``nslots`` [B, 3, 3] i32,
+    ``d_w`` [C, 24, 16, 16] at ``slots`` [B] i32 and origins ``pos`` [B, 2] i32."""
+    dev = d_layers.device
+    C, B = d_layers.shape[0], slots.shape[0]
+    _check(d_layers, "d_layers", torch.float32, (C, N_MAT, 16, 16), dev)
+    _check(d_hf, "d_hf", torch.float32, (C, 16, 16), dev)
+    _check(d_w, "d_w", torch.float32, (C, N_BIOMES, 16, 16), dev)
+    _check(nslots, "nslots", torch.int32, (B, 3, 3), dev)
+    _check(slots, "slots", torch.int32, (B,), dev)
+    _check(pos, "pos", torch.int32, (B, 2), dev)
+    tb = load_tables(dev)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("layers_slots", _build.load().mmt_layers_slots,
+                    _p(d_layers), _p(d_hf), _p(d_w), _p(nslots), _p(slots), _p(pos), B,
+                    _p(tb.biome_material_weights), _p(tb.material_thickness),
+                    _p(tb.material_amplitude_or_tan_repose), _p(tb.material_scale_or_max_slope),
+                    _p(tb.dir_vecs_2d), int(fix_backward))
+    return d_layers
+
+
+GRID_BLOCKS = 384
+N_ERODED = bio.NUM_ERODED_MATERIALS
+
+
+def _erosion(dev, grid_in, layers, heightfield, gslots, fix_all):
+    tb = load_tables(dev)
+    out = torch.empty((N_ERODED + 1, GRID_BLOCKS, GRID_BLOCKS), dtype=torch.float32, device=dev)
+    scratch = torch.empty((3, GRID_BLOCKS, GRID_BLOCKS), dtype=torch.float32, device=dev)
+    ints = torch.empty((4 + N_ERODED,), dtype=torch.int32, device=dev)  # flags, iterations
+    ptr = lambda t: None if t is None else _p(t)  # noqa: E731
+    with torch.cuda.device(dev):
+        _launch("erosion", _build.load().mmt_erosion,
+                ptr(grid_in), ptr(layers), ptr(heightfield), ptr(gslots), int(fix_all),
+                _p(tb.material_amplitude_or_tan_repose), _p(tb.dir_vecs_2d), _p(out),
+                _p(scratch[0]), _p(scratch[1]), _p(ints), _p(ints[4:]))
+    return out, ints[4:]
+
+
+def erode_zone(grid):
+    """K9 on a gathered [9, 384, 384] f32 grid -> (eroded grid, [8] i32 sweeps per layer,
+    top layer first; both on the device, nothing read back)."""
+    _check(grid, "grid", torch.float32, (N_ERODED + 1, GRID_BLOCKS, GRID_BLOCKS), grid.device)
+    return _erosion(grid.device, grid, None, None, None, False)
+
+
+def erode_zone_slots(layers, heightfield, gslots, fix_all: bool):
+    """K9 over a slot table, in place: the zone grid of ``gslots`` [24, 24] i32 read from
+    ``layers`` [N, 20, 16, 16] (unfixed) and ``heightfield`` [N, 16, 16], the eroded core
+    written back and the backward fix applied to the core (or all 576 chunks with
+    ``fix_all``).  Returns the [8] i32 sweeps per layer (on the device)."""
+    dev = layers.device
+    N = layers.shape[0]
+    _check(layers, "layers", torch.float32, (N, N_MAT, 16, 16), dev)
+    _check(heightfield, "heightfield", torch.float32, (N, 16, 16), dev)
+    _check(gslots, "gslots", torch.int32, (24, 24), dev)
+    return _erosion(dev, None, layers, heightfield, gslots, fix_all)[1]
 
 
 def caves(heightfield, biome_weights, chunk_pos):
@@ -269,6 +333,32 @@ def features(blocks, surface_lists, cave_lists, surface_streams, cave_streams, c
                     *(_p(surface_lists[k]) for k in (*SURFACE_FIELDS, "count")), _p(surface_streams),
                     *(_p(cave_lists[k]) for k in (*CAVE_FIELDS, "count")), _p(cave_streams),
                     _p(chunk_pos), ncx, ncz, _p(out))
+    return out
+
+
+def features_slots(blocks, d_sf, d_cf, d_sstream, d_cstream, nslots, chunk_pos, cull: bool = True):
+    """K7s: blocks [B,16,16,384] u8 of the batch's chunks with their gathered placement
+    lists applied -> new blocks tensor.  Chunk b gathers the lists of the slots
+    ``nslots[b]`` ([B, 49] i32, GATHER_OFFSETS order) from the slot table: ``d_sf`` /
+    ``d_cf`` dicts of [C, 256] / [C, 1024] i32 fields and [C] true ``count``,
+    ``d_sstream`` / ``d_cstream`` [C, K, 64] f32.  ``cull=False`` evaluates every gathered
+    entry for every voxel (no window test): the JAX program's semantics, for checking."""
+    dev = blocks.device
+    B, C = blocks.shape[0], d_sf["feature"].shape[0]
+    _check(blocks, "blocks", torch.uint8, (B, 16, 16, Y_SIZE), dev)
+    _check_lists(d_sf, SURFACE_FIELDS, SURFACE_CAP, C, dev, "surface")
+    _check_lists(d_cf, CAVE_FIELDS, CAVE_CAP, C, dev, "cave")
+    _check(d_sstream, "d_sstream", torch.float32, (C, SURFACE_CAP, STREAM_LEN), dev)
+    _check(d_cstream, "d_cstream", torch.float32, (C, CAVE_CAP, STREAM_LEN), dev)
+    _check(nslots, "nslots", torch.int32, (B, 49), dev)
+    _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    out = torch.empty_like(blocks)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("features_slots", _build.load().mmt_features_slots, _p(blocks),
+                    *(_p(d_sf[k]) for k in (*SURFACE_FIELDS, "count")), _p(d_sstream),
+                    *(_p(d_cf[k]) for k in (*CAVE_FIELDS, "count")), _p(d_cstream),
+                    _p(nslots), _p(chunk_pos), B, int(cull), _p(out))
     return out
 
 

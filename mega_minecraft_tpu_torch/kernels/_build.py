@@ -44,9 +44,15 @@ _I = ctypes.c_int
 SIGNATURES = {
     # pos, B, noise_w, out hf, out w, stream
     "mmt_heightfield": [_P, _I, _P, _P, _P, _P],
-    # hf_halo, w_halo, pos_halo, ncx, ncz, bmw, thickness, amplitude, scale, dirs,
+    # hf_halo, w_halo, pos_halo, ncx, ncz, bmw, thickness, amplitude, scale, dirs, fix,
     # out layers, out hf_in, out w_in, out pos_in, stream
-    "mmt_layers": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "mmt_layers": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    # d_layers (in/out), d_hf, d_w, nslots, slots, pos, B, bmw, thickness, amplitude, scale,
+    # dirs, fix, stream
+    "mmt_layers_slots": [_P] * 6 + [_I] + [_P] * 5 + [_I, _P],
+    # grid_in (or null), layers (in/out, or null), hf, gslots, fix_all, tan_repose, dirs,
+    # out grid, scratch tmp, scratch acc, flags, out iters, stream
+    "mmt_erosion": [_P] * 4 + [_I] + [_P] * 8,
     # hf, w, pos, B, cave_noise_w, scratch carved, out starts, ends, bottom, top, stream
     "mmt_caves": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # hf, w, layers, starts, ends, pos, B, grass, mat_block, cave_noise_w, out blocks, stream
@@ -62,6 +68,8 @@ SIGNATURES = {
     # blocks, surface feature, x, y, z, replace, count, streams, cave feature, x, y, z,
     # replace, height, count, streams, pos, ncx, ncz, out blocks, stream
     "mmt_features": [_P] * 17 + [_I, _I, _P, _P],
+    # the 16 list arguments of mmt_features, nslots, pos, B, cull, out blocks, stream
+    "mmt_features_slots": [_P] * 18 + [_I, _I, _P, _P],
     # blocks, hf, w, starts, ends, bottom_biome, pos, B, out blocks, stream
     "mmt_decorators": [_P] * 7 + [_I, _P, _P],
 }

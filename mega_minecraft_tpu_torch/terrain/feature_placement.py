@@ -6,7 +6,9 @@ ceiling} per column) from one sequential minstd stream per column whose state ad
 only where the reference's control flow would draw.  ``compact_placements`` turns the
 grids into capped per-chunk lists in the reference's order.  Both dispatch on the
 tensor's device: CUDA tensors go to ``csrc/placements.cu``, CPU tensors to the plain
-versions below.
+versions below.  ``gather_from_neighborhood(_batch)`` is the streaming scheduler's
+49-chunk list gather (plain only: on the kernel path it is folded into K7s,
+``csrc/features.cu``).
 
 The plain versions keep the JAX program's masked whole-grid form, but read the gen
 tables with indexed lookups (``table[biome]``).
@@ -259,3 +261,20 @@ def compact_placements(pl, chunk_pos):
         return kernels.compact_placements(pl, chunk_pos)
     kernels.require_cpu(chunk_pos)
     return compact_placements_plain(pl, chunk_pos)
+
+
+def gather_from_neighborhood(per_chunk_lists, cap: int):
+    """Concatenate 49 per-chunk lists (dict of [49, K]) in ``GATHER_OFFSETS`` order and
+    keep the first ``cap`` valid entries (feature > 0), in that order: the reference's
+    gather cap.  A ``count`` entry is ignored: only the valid entries the lists hold are
+    ranked.  Returns dict of [cap]; past the valid entries 'feature' is 0."""
+    one = gather_from_neighborhood_batch({k: v[None] for k, v in per_chunk_lists.items()}, cap)
+    return {k: v[0] for k, v in one.items()}
+
+
+def gather_from_neighborhood_batch(per_chunk_lists, cap: int):
+    """Batched 49-chunk gather: dict of [B, 49, K] -> dict of [B, cap]."""
+    flat = {k: v.reshape(v.shape[0], -1) for k, v in per_chunk_lists.items() if k != "count"}
+    out = _compact(flat["feature"] > 0, cap, flat)
+    del out["count"]
+    return out

@@ -1,6 +1,6 @@
-"""Stage 5b: apply the placement lists to an area's block volume (kernel K7).
+"""Stage 5b: apply the placement lists to an area's or a chunk's blocks (kernels K7, K7s).
 
-Port of ``mega_minecraft_tpu/terrain/features.py:37-77,172-457``.  Per voxel the winner
+Port of ``mega_minecraft_tpu/terrain/features.py``.  Per voxel the winner
 is the first placement, in the voxel's own chunk's 49-chunk spiral order and then list
 slot, whose SDF hits, whose y lies within the type's height bounds and whose terrain
 block is AIR or replaceable; surface placements win over cave ones; both test the
@@ -16,6 +16,16 @@ its window and keeps the minimum (spiral rank, slot) key per voxel.
 Both versions evaluate a placement only inside the same per-type XZ window: the JAX
 program's window for the type (its radius table rounded up to its 16-block window
 grid), centred on the placement and cut at the area's edge.
+
+The streaming scheduler applies features per chunk (``apply_features_chunk`` /
+``apply_features_batch``, JAX ``features.py:91,461,471``): a chunk's gathered lists
+(``feature_placement.gather_from_neighborhood``: valid entries of its 49 neighbours'
+stored lists in spiral order, cut at the gather cap) are applied in list order, first
+hit wins.  The plain version follows the JAX program: every gathered entry is evaluated
+over the whole chunk (its rows within the entry's height bounds), with no XZ window.
+``apply_features_slots`` is that stage over the slot table: K7s on CUDA (the gather
+folded in through a [B, 49] slot table, the streams read from the slot table), the
+gather plus the plain per-chunk application on the CPU.
 """
 
 from __future__ import annotations
@@ -225,3 +235,96 @@ def apply_features_area(blocks, surface_lists, cave_lists, chunk_pos, ncx: int, 
                                 chunk_pos, ncx, ncz)
     kernels.require_cpu(blocks)
     return apply_features_area_plain(blocks, surface_lists, cave_lists, chunk_pos, ncx, ncz)
+
+
+def apply_placements_plain(blocks, placements, chunk_pos1, cave: bool):
+    """Plain application of one gathered list to one chunk, in list order up to its first
+    empty entry: blocks [16, 16, 384] u8, placements dict of [K] i32, chunk_pos1 [2] i32.
+    Returns (blocks, placed mask)."""
+    dev = blocks.device
+    feats = placements["feature"].cpu().numpy()
+    host = {k: placements[k].cpu().numpy() for k in placements if k != "feature"}
+    ox, oz = (int(v) for v in chunk_pos1.cpu())
+    bounds = fd.CAVE_FEATURE_HEIGHT_BOUNDS if cave else fd.FEATURE_HEIGHT_BOUNDS
+    fns = sdf.CAVE_FEATURE_FNS if cave else sdf.SURFACE_FEATURE_FNS
+    feat_seed = sdf.SEED_CAVE_FEATURE_RNG if cave else sdf.SEED_SURFACE_FEATURE_RNG
+    block_seed = sdf.SEED_CAVE_BLOCK_RNG if cave else sdf.SEED_SURFACE_BLOCK_RNG
+    out = blocks.to(I32)
+    placed = torch.zeros(blocks.shape, dtype=torch.bool, device=dev)
+    lx = torch.arange(16, dtype=I32, device=dev)
+
+    def i32(v):
+        return torch.tensor(int(v), dtype=I32, device=dev)
+
+    n = int(np.argmin(feats != 0)) if (feats == 0).any() else len(feats)
+    # the entries' 64-draw streams, drawn for all of them at once (elementwise)
+    streams = sdf.draw_stream(*(placements[c][:n] for c in "xyz"), feat_seed)
+    for i in range(n):
+        fid = int(feats[i])
+        fn = fns.get(fid)
+        if fn is None:
+            continue
+        px, py, pz = (int(host[c][i]) for c in "xyz")
+        layer_h = int(host["height"][i]) if cave else 0
+        # outside [lo, hi] the placement is no candidate: evaluate only those rows
+        y0 = max(py + int(bounds[fid, 0]), 0)
+        y1 = min(py + layer_h + int(bounds[fid, 1]), Y_SIZE - 1)
+        if y0 > y1:
+            continue
+        shape = (16, 16, y1 - y0 + 1)
+        wz = (oz + lx)[:, None, None].expand(shape)
+        wx = (ox + lx)[None, :, None].expand(shape)
+        wy = torch.arange(y0, y1 + 1, dtype=I32, device=dev)[None, None, :].expand(shape)
+        brng = hashes.seed_4(wx, wy, wz, block_seed)
+        extra = {"fy_pos": i32(py), "fpos": (i32(px), i32(py), i32(pz)), "layer_height": i32(layer_h)}
+        hit, fblock, _ = fn(streams[i], wx - px, wy - py, wz - pz, wx, wy, wz, brng, extra)
+        win = (slice(None), slice(None), slice(y0, y1 + 1))
+        cand = hit & ~placed[win]
+        if not int(host["replace"][i]):
+            cand = cand & (blocks[win] == AIR)
+        out[win] = torch.where(cand, fblock, out[win])
+        placed[win] = placed[win] | cand
+    return out.to(torch.uint8), placed
+
+
+def apply_features_chunk_plain(blocks, surface_list, cave_list, chunk_pos1):
+    """Plain per-chunk feature application: surface placements take priority; cave
+    placements test the terrain block and claim only voxels no surface placement took."""
+    blocks_s, placed_s = apply_placements_plain(blocks, surface_list, chunk_pos1, cave=False)
+    blocks_c, placed_c = apply_placements_plain(blocks, cave_list, chunk_pos1, cave=True)
+    return torch.where(placed_s, blocks_s, torch.where(placed_c, blocks_c, blocks))
+
+
+def apply_features_batch_plain(blocks, surface_lists, cave_lists, chunk_pos):
+    """``apply_features_chunk_plain`` over a leading chunk axis: blocks [B, 16, 16, 384]
+    u8, gathered lists dict of [B, cap], chunk_pos [B, 2]."""
+    return torch.stack([
+        apply_features_chunk_plain(blocks[b], {k: v[b] for k, v in surface_lists.items()},
+                                   {k: v[b] for k, v in cave_lists.items()}, chunk_pos[b])
+        for b in range(blocks.shape[0])])
+
+
+def apply_features_slots_plain(blocks, d_sf, d_cf, nslots, chunk_pos):
+    """Plain version of K7s: for each chunk b, the 49-chunk gather of the slot table's
+    lists through ``nslots`` [B, 49] (``GATHER_OFFSETS`` order), then the per-chunk
+    application to blocks [B, 16, 16, 384] u8."""
+    from .feature_placement import (MAX_GATHERED_CAVE_FEATURES, MAX_GATHERED_FEATURES,
+                                    gather_from_neighborhood_batch)
+
+    idx = nslots.reshape(-1).long()
+    B = nslots.shape[0]
+    rows = lambda d: {k: v[idx].reshape(B, nslots.shape[1], *v.shape[1:]) for k, v in d.items()}  # noqa: E731
+    surf = gather_from_neighborhood_batch(rows(d_sf), MAX_GATHERED_FEATURES)
+    cave = gather_from_neighborhood_batch(rows(d_cf), MAX_GATHERED_CAVE_FEATURES)
+    return apply_features_batch_plain(blocks, surf, cave, chunk_pos)
+
+
+def apply_features_slots(blocks, d_sf, d_cf, d_sstream, d_cstream, nslots, chunk_pos):
+    """The scheduler's feature step over the slot table: K7s on CUDA (lists, true counts
+    and per-entry streams read from the slot table, ``d_sstream`` / ``d_cstream``
+    [capacity, K, 64] f32), the plain version on the CPU (streams unused).  Returns new
+    blocks [B, 16, 16, 384] u8."""
+    if blocks.is_cuda:
+        return kernels.features_slots(blocks, d_sf, d_cf, d_sstream, d_cstream, nslots, chunk_pos)
+    kernels.require_cpu(blocks)
+    return apply_features_slots_plain(blocks, d_sf, d_cf, nslots, chunk_pos)

@@ -1,8 +1,9 @@
 """Halo gathers: per-chunk arrays -> halo'd arrays (plain version).
 
 Port of ``mega_minecraft_tpu/terrain/gather.py:15-36`` and the 18x18 halo slice of
-``pipeline.py:58-66``.  On the kernel path this gather is folded into kernel K2
-(``csrc/layers.cu`` reads the halo'd heightfield by index arithmetic).
+``pipeline.py:58-66``.  On the kernel path these gathers are folded into kernels K2 and
+K2s (``csrc/layers.cu`` reads the heightfields by index arithmetic, over an area's halo
+grid or through the scheduler's 3x3 slot table).
 """
 
 from __future__ import annotations
@@ -36,3 +37,16 @@ def gather_halo_heightfields(hf_halo, ncx: int, ncz: int):
     # windows start at block (16 * i + 15) on each axis: [ncz, ncx, 18 (z), 18 (x)]
     wins = full[15:, 15:].unfold(0, 18, 16).unfold(1, 18, 16)
     return wins.reshape(ncz * ncx, 18, 18).contiguous()
+
+
+def gather_heightfield_3x3(hf_3x3):
+    """[3, 3, 16, 16] neighbourhood ([cz, cx, z, x]) -> [18, 18] window: the centre chunk
+    and a 1-block ring from its neighbours."""
+    return assemble_chunk_grid(hf_3x3)[15:33, 15:33]
+
+
+def gather_heightfields_batch(hf_neighborhoods):
+    """[B, 3, 3, 16, 16] -> [B, 18, 18]."""
+    B = hf_neighborhoods.shape[0]
+    full = hf_neighborhoods.permute(0, 1, 3, 2, 4).reshape(B, 48, 48)
+    return full[:, 15:33, 15:33].contiguous()

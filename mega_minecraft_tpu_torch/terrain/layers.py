@@ -1,10 +1,13 @@
-"""Stage 2: material layers (kernel K2).
+"""Stage 2: material layers (kernels K2 and K2s).
 
 Port of ``mega_minecraft_tpu/terrain/layers.py:28-127``.  The plain functions keep the
-JAX signatures.  ``layers_from_halo`` is the stage as the fused pipeline runs it: halo
-gather -> ``generate_layers`` -> ``fix_backward_stratified``, plus the inner-chunk
-selection of heightfield, weights and origins.  On CUDA it is one launch of
-``csrc/layers.cu``; on the CPU it is the plain composition.
+JAX signatures.  ``layers_from_halo`` is the stage as the area pipeline runs it: halo
+gather -> ``generate_layers`` -> ``fix_backward_stratified`` (unless erosion follows),
+plus the inner-chunk selection of heightfield, weights and origins.  ``layers_slots`` is
+the stage as the streaming scheduler runs it (``_stage_layers``): 3x3 slot gather ->
+``generate_layers`` -> optional fix -> slot write.  On CUDA each is one launch of
+``csrc/layers.cu`` (K2, K2s: the same device code, two ways of addressing); on the CPU
+the plain composition.
 """
 
 from __future__ import annotations
@@ -103,13 +106,16 @@ def fix_backward_stratified(layers):
     return fixed
 
 
-def layers_from_halo_plain(hf_halo, w_halo, pos_halo, ncx: int, ncz: int):
+def layers_from_halo_plain(hf_halo, w_halo, pos_halo, ncx: int, ncz: int,
+                           fix_backward: bool = True):
     """Plain version of K2: halo'd stage-1 outputs -> inner-chunk dict."""
     inner = gather.inner_indices(ncx, ncz, hf_halo.device)
     gathered = gather.gather_halo_heightfields(hf_halo, ncx, ncz)
     w_in = w_halo[inner].contiguous()
     pos_in = pos_halo[inner].contiguous()
-    ls = fix_backward_stratified(generate_layers(gathered, w_in, pos_in))
+    ls = generate_layers(gathered, w_in, pos_in)
+    if fix_backward:
+        ls = fix_backward_stratified(ls)
     return {
         "layers": ls,
         "heightfield": hf_halo[inner].contiguous(),
@@ -118,12 +124,35 @@ def layers_from_halo_plain(hf_halo, w_halo, pos_halo, ncx: int, ncz: int):
     }
 
 
-def layers_from_halo(hf_halo, w_halo, pos_halo, ncx: int, ncz: int):
+def layers_from_halo(hf_halo, w_halo, pos_halo, ncx: int, ncz: int, fix_backward: bool = True):
     """Stage 2 over an ncz x ncx area with a 1-chunk halo: K2 on CUDA, plain on CPU.
 
-    Returns dict: layers [B,20,16,16] (fixed), heightfield [B,16,16],
-    biome_weights [B,24,16,16], chunk_pos [B,2] for the B = ncz*ncx inner chunks."""
+    Returns dict: layers [B,20,16,16] (fixed unless ``fix_backward`` is false),
+    heightfield [B,16,16], biome_weights [B,24,16,16], chunk_pos [B,2] for the
+    B = ncz*ncx inner chunks."""
     if hf_halo.is_cuda:
-        return kernels.layers(hf_halo, w_halo, pos_halo, ncx, ncz)
+        return kernels.layers(hf_halo, w_halo, pos_halo, ncx, ncz, fix_backward)
     kernels.require_cpu(hf_halo)
-    return layers_from_halo_plain(hf_halo, w_halo, pos_halo, ncx, ncz)
+    return layers_from_halo_plain(hf_halo, w_halo, pos_halo, ncx, ncz, fix_backward)
+
+
+def layers_slots_plain(d_layers, d_hf, d_w, nslots, slots, pos, fix_backward: bool):
+    """Plain version of K2s, in place: for each chunk b of the batch, its 18x18 window
+    from the heightfields of its 3x3 neighbourhood ``nslots`` [B, 3, 3], its weights
+    ``d_w[slots[b]]`` and origin ``pos`` [B, 2] -> ``d_layers[slots[b]]``."""
+    hf3 = d_hf[nslots.reshape(-1).long()].reshape(-1, 3, 3, 16, 16)
+    ls = generate_layers(gather.gather_heightfields_batch(hf3), d_w[slots.long()], pos)
+    if fix_backward:
+        ls = fix_backward_stratified(ls)
+    d_layers[slots.long()] = ls
+    return d_layers
+
+
+def layers_slots(d_layers, d_hf, d_w, nslots, slots, pos, fix_backward: bool):
+    """The scheduler's layers stage over the slot table, in place: K2s on CUDA, the
+    plain version on the CPU.  Returns ``d_layers``."""
+    if d_layers.is_cuda:
+        kernels.layers_slots(d_layers, d_hf, d_w, nslots, slots, pos, fix_backward)
+        return d_layers
+    kernels.require_cpu(d_layers)
+    return layers_slots_plain(d_layers, d_hf, d_w, nslots, slots, pos, fix_backward)

@@ -2,10 +2,11 @@
 placement -> SDF features -> decorators, over a chunk area.
 
 Port of ``mega_minecraft_tpu/terrain/pipeline.py`` (``generate_area_fused`` with its
-two halves, and ``generate_area``) without erosion.  Every stage dispatches on the
-device of ``pos_halo``: on CUDA the area is a chain of kernel launches (K1-K4, then
-K5-K8 and the stream pre-kernel) with no host round trip between them; on the CPU it
-runs the plain versions.
+two halves, and ``generate_area``, whose ``erode=True`` erodes a 24x24-chunk area as
+one zone grid between layers and caves).  Every stage dispatches on the device of
+``pos_halo``: on CUDA the area is a chain of kernel launches (K1, K2, with erosion K9,
+then K3, K4, and with features K5-K8 and the stream pre-kernel) with no host round trip
+between them; on the CPU it runs the plain versions.
 """
 
 from __future__ import annotations
@@ -14,9 +15,8 @@ import numpy as np
 import torch
 
 from . import caves as caves_mod
-from . import decorators, feature_placement, features as features_mod, fill, heightfield, layers
-
-_EROSION_TODO = "zone erosion is not ported yet (ROADMAP Queue 1, item 9)"
+from . import decorators, erosion, feature_placement, features as features_mod, fill, heightfield
+from . import layers
 
 
 def feature_half(blocks, hf, w, ls, cv, pos, ncx: int, ncz: int):
@@ -32,7 +32,7 @@ def feature_half(blocks, hf, w, ls, cv, pos, ncx: int, ncz: int):
 
 
 def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
-    """The per-chunk pipeline for an ``ncx x ncz`` area.
+    """The per-chunk pipeline for an ``ncx x ncz`` area (no erosion).
 
     Args:
       pos_halo: [(ncz+2)*(ncx+2), 2] i32 world-block chunk origins, row-major with the
@@ -43,8 +43,18 @@ def generate_area_fused(pos_halo, ncx: int, ncz: int, features: bool = False):
     heightfield, biome_weights, layers, caves (dict), chunk_pos, and with features
     ``placements`` (the per-chunk lists).
     """
+    return _area(pos_halo, ncx, ncz, features, erode=False)
+
+
+def _area(pos_halo, ncx: int, ncz: int, features: bool, erode: bool):
     hf, w = heightfield.generate_heightfield(pos_halo)
-    st = layers.layers_from_halo(hf, w, pos_halo, ncx, ncz)
+    # with erosion the backward-stratified fix waits until after it (it reads layer 12)
+    st = layers.layers_from_halo(hf, w, pos_halo, ncx, ncz, fix_backward=not erode)
+    if erode:
+        # the whole area is the zone grid: slot table = row-major chunk index; eroded
+        # in place, then the fix over all 576 chunks
+        gslots = torch.arange(ncx * ncz, dtype=torch.int32, device=hf.device).reshape(ncz, ncx)
+        erosion.erode_zone_slots(st["layers"], st["heightfield"], gslots, fix_all=True)
     cv = caves_mod.generate_caves(st["heightfield"], st["biome_weights"], st["chunk_pos"])
     blocks = fill.fill_chunks(
         st["heightfield"], st["biome_weights"], st["layers"], cv["starts"], cv["ends"],
@@ -76,13 +86,15 @@ def chunk_positions(cx0: int, cz0: int, ncx: int, ncz: int, device) -> torch.Ten
 def generate_area(cx0: int, cz0: int, ncx: int, ncz: int, erode: bool = False,
                   features: bool = False, *, device):
     """Generate the ``ncx x ncz``-chunk area at chunk coords (cx0, cz0) on ``device``.
+    ``erode`` erodes the area as one zone grid (its 12x12 core), which needs a
+    24x24-chunk area.
 
     Returns the dict of ``generate_area_fused`` with blocks shaped [ncz, ncx, 16, 16, 384]
     (with ``features`` also ``placements``, as the JAX function returns them).
     """
-    if erode:
-        raise NotImplementedError(_EROSION_TODO)
+    if erode and (ncx, ncz) != (erosion.GRID_CHUNKS, erosion.GRID_CHUNKS):
+        raise ValueError("erode=True requires a 24x24-chunk area (one full zone grid)")
     pos_halo = chunk_positions(cx0 - 1, cz0 - 1, ncx + 2, ncz + 2, device=device)
-    out = generate_area_fused(pos_halo, ncx, ncz, features=features)
+    out = _area(pos_halo, ncx, ncz, features, erode)
     out["blocks"] = out["blocks"].reshape(ncz, ncx, 16, 16, 384)
     return out

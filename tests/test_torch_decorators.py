@@ -30,6 +30,16 @@ GOLDEN_DIR = Path(__file__).parent / "golden"
 CHUNKS = [(0, 0), (592, -368)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs its files in several processes on the same
+    cores, where torch's spinning thread pools would starve each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def inputs():
     g = np.load(GOLDEN_DIR / "golden_chunks.npz")

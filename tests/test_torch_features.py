@@ -43,6 +43,16 @@ ORIGIN = (0, 0)  # golden chunk (0, 0): pines, shrubs and a warped fungus (small
 I32 = torch.int32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs its files in several processes on the same
+    cores, where torch's spinning thread pools would starve each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

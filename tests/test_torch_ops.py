@@ -33,6 +33,16 @@ GOLDEN_NOISE = os.path.join(ROOT, "tests", "golden", "golden_noise.npz")
 RNG_SEED = 20261016
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs its files in several processes on the same
+    cores, where torch's spinning thread pools would starve each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_exact(fn, *args, **kw):
     with jax.disable_jit(), jh.exact_scope(True):
         out = fn(*[jnp.asarray(a) for a in args], **kw)
@@ -256,8 +266,8 @@ def test_build_flags_and_hash():
     assert "fast_math" not in flags
     assert _build.source_hash() == _build.source_hash()
     assert sorted(p.name for p in _build._sources()) == [
-        "caves.cu", "decorators.cu", "features.cu", "fill.cu", "heightfield.cu", "layers.cu",
-        "placements.cu"]
+        "caves.cu", "decorators.cu", "erosion.cu", "features.cu", "fill.cu", "heightfield.cu",
+        "layers.cu", "placements.cu"]
     # every C entry point the wrappers call is declared in one of the sources
     text = "".join(p.read_text() for p in _build._sources())
     for name in _build.SIGNATURES:

@@ -38,6 +38,16 @@ from mega_minecraft_tpu_torch.terrain import caves, fill, heightfield, layers, p
 ORIGIN_CHUNK = (592 // 16, -368 // 16)  # golden chunk (592, -368): cave-dense
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs its files in several processes on the same
+    cores, where torch's spinning thread pools would starve each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pos_halo():
     return pipeline.chunk_positions(ORIGIN_CHUNK[0] - 1, ORIGIN_CHUNK[1] - 1, 3, 3, device="cpu")
 
@@ -159,13 +169,19 @@ def test_featured_slice_blocks(jax_area, port_featured):
 
 @pytest.mark.parametrize(
     "call",
-    [lambda: pipeline.generate_area(0, 0, 24, 24, erode=True, device="cpu"),
-     lambda: generate_demo.main(["--device", "cpu", "--render", "out.png"])],
-    ids=["area-erode", "demo-render"],
+    [lambda: generate_demo.main(["--device", "cpu", "--render", "out.png"])],
+    ids=["demo-render"],
 )
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
+
+
+@pytest.mark.parametrize("ncx,ncz", [(1, 1), (24, 23), (25, 24)])
+def test_erode_needs_one_zone_grid(ncx, ncz):
+    """As in JAX: erosion erodes the area as one 24x24-chunk zone grid or raises."""
+    with pytest.raises(ValueError, match="24x24"):
+        pipeline.generate_area(0, 0, ncx, ncz, erode=True, device="cpu")
 
 
 def test_fused_features_returns_documented_shapes(port_featured, port_area):

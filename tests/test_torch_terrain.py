@@ -34,6 +34,16 @@ SEEDED = [tuple(int(v) * 16 for v in np.random.default_rng(RNG_SEED).integers(-4
           for _ in range(2)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs its files in several processes on the same
+    cores, where torch's spinning thread pools would starve each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_exact(fn, *args):
     with jax.disable_jit(), jh.exact_scope(True):
         return jax.tree_util.tree_map(np.asarray, fn(*[jnp.asarray(a) for a in args]))
