@@ -40,13 +40,31 @@ Phases, each of which raises (non-zero exit) on failure:
      native=True)`` (the radius-40 spiral, 1,089 drawable chunks), with the counts reset
      around it; replay its first zone erosion through the plain versions; time K2s and K7s
      at its largest batches against their plain versions; drain it again with the
-     ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share.
+     ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share;
+ 10. the render path's main run, as bench_render.py drives it, with the counts reset just
+     before and read just after: ``brickmap.build_scene`` of the 10x10 bench scene (four
+     featured 5x5 areas tiled as tools/scenelib.py tiles them) (K10), ``tracer.trace`` of
+     its 1080p primary rays (K11t), one ``render_sample`` + ``accumulate`` and eight
+     ``render_accumulate`` (K11, K12); K10 against its plain version bit for bit on that
+     scene and on the 33x33 featured area at chunk (-16, -16);
+ 11. K11t on the 1080p primary rays (every output equal); K11 on the whole 1080p frame 3
+     of both scenes by day (sun_time 1.0), and of the 10x10 scene at night (sun_time 4.0,
+     sun below the horizon) and with ``exact=True`` (counts equal; >= 99.9% of pixels
+     within 1e-5 in colour, albedo, normal and depth, mean |diff| <= 1e-4); the
+     alpha-cutout code under the hand-set atlas of tests/test_torch_cuda.py (K10 bit for
+     bit; K11t exact and stochastic on the primary rays and on rays aimed at flagged
+     voxels; K11 on the 1080p frame of a camera aimed at one, in both trace modes); K12
+     bit for bit, and one K11 and one K12 launch per ``render_accumulate``;
+ 12. ms/frame and Mpaths/s of eight accumulated frames at 1080p and 540p on both scenes,
+     K10 per scene, every render kernel against its plain version, and the step counts
+     per pixel (primary, bounce, shadow rays; mean, p99, max) from K11's counts output.
 On the card, kernel and plain version run the same libm, so integer outputs must be
 equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5.
 The second-to-last line is the kernels' JSON record (launch counts of the featured 5x5
-run for the area kernels and of the reference drain for K9, K2s and K7s; max |diff| over
-all checks; times and bounds at the 5x5 shapes, of K9 on the eroded area's grid, and of
-K2s and K7s at the reference drain's largest batches), the last the device record.
+run for the area kernels, of the reference drain for K9, K2s and K7s, and of the render
+run for K10-K12; max |diff| over all checks; times and bounds at the 5x5 shapes, of K9 on
+the eroded area's grid, of K2s and K7s at the reference drain's largest batches, and of
+K10-K12 on the 10x10 bench scene at 1080p), the last the device record.
 ``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas -v).
 
 A kernel's bound is the least time the card could take for the same work: the larger of
@@ -56,7 +74,12 @@ placement lists only the valid entries) over 3.35 TB/s and its f32 operations ov
 this run's data, with the unit costs below (how many biomes have weight, how many blocks
 reach the cave-biome noise, which voxels lie in a placement's window and height bounds
 and pass its terrain test), not what a kernel's design spends; they are estimates good
-to a few tens of percent.
+to a few tens of percent.  The render kernels: K10 the u8 volume read and the words
+written, and the doubling rounds' operations per voxel (the function is that transform);
+K11t and K11 the rays' or frame's inputs and outputs plus the field words their DDA steps
+read (at most the field), and the steps this frame's rays took (K11's counts output) times
+the cost of a step, plus a bounce's shading per radiance ray and the cloud march per
+first-hit ray that looks up; K12 three buffers read twice and written once.
 """
 
 from __future__ import annotations
@@ -101,7 +124,16 @@ KERNELS = {  # name -> (source, the JAX program it replaces)
                      "mega_minecraft_tpu/terrain/scheduler.py:97"),
     "features_slots": ("mega_minecraft_tpu_torch/csrc/features.cu",
                        "mega_minecraft_tpu/terrain/features.py:471"),
+    "scene_fields": ("mega_minecraft_tpu_torch/csrc/brickmap.cu",
+                     "mega_minecraft_tpu/render/brickmap.py:289"),
+    "trace": ("mega_minecraft_tpu_torch/csrc/tracer.cu", "mega_minecraft_tpu/render/tracer.py:104"),
+    "render_sample": ("mega_minecraft_tpu_torch/csrc/tracer.cu",
+                      "mega_minecraft_tpu/render/tracer.py:1259"),
+    "accumulate": ("mega_minecraft_tpu_torch/csrc/accumulate.cu",
+                   "mega_minecraft_tpu/render/tracer.py:1584"),
 }
+#: the render path's kernels (build_scene, trace, render_sample, accumulate)
+RENDER_KERNELS = ("scene_fields", "trace", "render_sample", "accumulate")
 #: the area path's kernels (generate_area_fused(..., features=True)); the featureless slice
 AREA_KERNELS = ("heightfield", "layers", "caves", "fill", "placements", "compact_placements",
                 "feature_streams", "features", "decorators")
@@ -818,6 +850,285 @@ def erosion_phase(dev, stamp, err, times, bounds, smi):
     bounds["erosion"] = b9
 
 
+
+# -- the render path (phases 10-12) ---------------------------------------------------------
+#: f32 operations of one DDA step (the loop body of csrc/tracer.cu trace_ray: position and
+#: voxel, the word's decode, the cell exit, the crossed quads, the skips), one ray's setup,
+#: one bounce's shading (texel, variant hash 455, BSDF sample, the ten draws, the NEE sample
+#: and the sky without clouds, roulette) and the cloud march of a first-hit ray with
+#: dy >= 0.04 (12 samples of 5 Perlin stacks)
+DDA_STEP_OPS = 140
+DDA_RAY_OPS = 60
+SHADE_OPS = 1000
+CLOUD_OPS = 8400
+#: K10 per fine voxel: 6 doubling rounds, each with 6 shifted mins, an add and a min for
+#: the 3-D distance and 4 shifted mins (horizontal only), an add and a min for each of
+#: the three clearances; the seeds and the encoding (the macro level adds 1/64 of it).
+#: These are integer min / add; the bound prices them at the f32 rate (67 TFLOP/s), the
+#: only non-tensor rate in the published table
+K10_VOXEL_OPS = 6 * (8 + 3 * 6) + 30
+RENDER_FRAMES = 8  # accumulated frames per timed run, as bench_render.py runs them
+
+
+def bench_blocks(dev):
+    """The 10x10 bench scene's chunks: four featured 5x5 areas tiled as tools/scenelib.py
+    tiles them (chunks [-5, 5)), and the highest heightfield value."""
+    from mega_minecraft_tpu_torch.terrain import pipeline
+
+    rows, hmax = [], 0.0
+    for tz in range(2):
+        row = []
+        for tx in range(2):
+            cx0, cz0 = -5 + 5 * tx, -5 + 5 * tz
+            out = pipeline.generate_area_fused(
+                pipeline.chunk_positions(cx0 - 1, cz0 - 1, 7, 7, device=dev), 5, 5, features=True)
+            row.append(out["blocks"].reshape(5, 5, 16, 16, 384))
+            hmax = max(hmax, float(out["heightfield"].max()))
+        rows.append(torch.cat(row, dim=1))
+    return torch.cat(rows, dim=0), hmax
+
+
+def k10_counts(vol, flat):
+    n = vol.numel()
+    return vol.numel() + flat.numel() * 4, n * K10_VOXEL_OPS * 65 / 64
+
+
+def k11t_counts(n_rays, steps, scene):
+    words = min(int(steps.sum()), scene.flat.numel())
+    return n_rays * (25 + 18) + words * 4, int(steps.sum()) * DDA_STEP_OPS + n_rays * DDA_RAY_OPS
+
+
+def k11_counts(stats, scene):
+    """stats: the [H, W, 4] counts of a render_sample(want_steps=True) and the primary dy."""
+    st, dy = stats
+    steps = int(st[..., :3].sum())
+    rays = int(st[..., 3].sum())
+    clouds = int((dy >= 0.04).sum())
+    n_px = st.shape[0] * st.shape[1]
+    words = min(steps, scene.flat.numel())
+    return (n_px * 10 * 4 + words * 4,
+            steps * DDA_STEP_OPS + rays * (2 * DDA_RAY_OPS + SHADE_OPS) + clouds * CLOUD_OPS)
+
+
+def step_stats(name, st):
+    out = []
+    for k, label in enumerate(("primary", "bounce", "shadow", "radiance rays")):
+        v = st[..., k].reshape(-1).double()
+        out.append(f"{label} mean {float(v.mean()):.3f} p99 {float(torch.quantile(v[::7], 0.99)):.0f} "
+                   f"max {int(v.max())}")
+    print(f"  {name} per pixel: " + "; ".join(out))
+
+
+def check_k11(name, scene, cam, params, exact):
+    """K11 against its plain version on the whole 1080p frame 3.  Counts equal; >= 99.9% of
+    pixels within 1e-5 and mean |diff| <= 1e-4 in colour, albedo, normal and depth.
+    Returns the max |diff|."""
+    from mega_minecraft_tpu_torch.render import tracer
+
+    k = tracer.render_sample(scene, cam, params, 1080, 1920, 3, want_depth=True, want_steps=True, exact=exact)
+    p = tracer.render_sample_plain(scene, cam, params, 1080, 1920, 3, exact=exact)
+    check_equal(f"{name} counts", k[4], p[4])
+    msg, e = [], 0.0
+    for field, g, want in zip(("color", "albedo", "normal", "depth"), k, p):
+        check(bool(torch.isfinite(g).all()), f"{name} {field} not finite")
+        d = (g.double() - want.double()).abs()
+        dpx = d.amax(-1) if d.dim() == 3 else d
+        frac, mean, mx = float((dpx <= 1e-5).double().mean()), float(d.mean()), float(d.max())
+        msg.append(f"{field} max {mx:.3g} within 1e-5 {frac:.4f} mean {mean:.3g}")
+        check(frac >= 0.999 and mean <= 1e-4, f"{name} {field}: {frac} / {mean}")
+        e = max(e, mx)
+    print(f"  {name}: " + "; ".join(msg))
+    return e
+
+
+def alpha_cutout_checks(scene0, blocks, rays, med, params):
+    """The alpha-cutout code, which the procedural atlas never reaches, under the hand-set
+    atlas of tests/test_torch_cuda.py (leaves, X-shaped flora, stone, grass block and
+    smooth sandstone half transparent), on the bench scene (``scene0``: built without
+    cutouts from ``blocks``): K10's flag and fraction bits; K11t exact and stochastic on
+    its 1080p primary rays and on 262,144 rays aimed at flagged voxels; K11 exact and not
+    on the whole 1080p frame of a camera aimed at a flagged voxel.  Returns the max |diff|."""
+    from mega_minecraft_tpu_torch.render import brickmap, tracer
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cuda import aimed_player, cutout_atlas, flagged_surface_voxels, rays_at
+
+    dev = blocks.device
+    with cutout_atlas():
+        scene = brickmap.build_scene(blocks, -5, -5)
+        e = check_equal("cutout K10 10x10 flat", scene.flat, brickmap.build_fields_plain(
+            brickmap.scene_volume(blocks)))
+        targets = flagged_surface_voxels(scene, 262144)
+        aimed = rays_at(targets, dev)
+        for tag, rs, m in (("1080p primary", rays, med), ("aimed", aimed, med.new_zeros(len(targets)))):
+            base = tracer.trace(scene0, *rs, m)
+            seed = (torch.arange(m.numel(), dtype=torch.int64, device=dev) * 2654435761 % 2 ** 32).view(m.shape)
+            for alpha in ("exact", "stochastic"):
+                sd = seed if alpha == "stochastic" else None
+                got, gst = tracer.trace(scene, *rs, m, want_steps=True, alpha=alpha, seed=sd)
+                want, wst = tracer.trace_plain(scene, *rs, m, want_steps=True, alpha=alpha, seed=sd)
+                for k in got._fields:
+                    n_diff = int((getattr(got, k) != getattr(want, k)).sum())
+                    check(n_diff == 0, f"cutout K11t {tag} {alpha} {k}: {n_diff} values differ")
+                check_equal(f"cutout K11t {tag} {alpha} steps", gst, wst)
+                moved = int((got.t != base.t).sum())
+                print(f"  cutout K11t {tag} {alpha}: every output equal; {int(got.hit.sum())} hits, "
+                      f"{int(gst.sum())} steps; t moved by the cutouts on {moved} of {m.numel()} rays")
+                check(moved > 0, f"cutout K11t {tag} {alpha}: the cutouts changed no ray")
+        cam = aimed_player(targets).camera_params(1920, 1080, device=dev)
+        for exact in (True, False):
+            e = max(e, check_k11(f"cutout K11 exact={exact} aimed camera 1920x1080", scene, cam, params,
+                                 exact))
+            d0 = tracer.render_sample(scene0, cam, params, 1080, 1920, 3, want_depth=True, exact=exact)[3]
+            d1 = tracer.render_sample(scene, cam, params, 1080, 1920, 3, want_depth=True, exact=exact)[3]
+            share = float((d0 != d1).double().mean())
+            print(f"  cutout K11 exact={exact}: depth moved by the cutouts on {share:.4f} of the pixels")
+            check(share > 0.01, f"cutout K11 exact={exact}: the cutouts are not in view")
+    return e
+
+
+def render_phases(dev, stamp, err, smi):
+    """Phases 10-12.  Returns (launches, times, bounds) of the render kernels."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.render import brickmap, camera, sky, tracer
+    from mega_minecraft_tpu_torch.terrain import pipeline
+
+    stamp("phase 10: the render main path on the 10x10 bench scene at 1080p (counts reset "
+          "around it), and K10 on the 10x10 and 33x33 scenes")
+    blocks10, hmax = bench_blocks(dev)
+    player = camera.Player(pos=np.array([0.0, hmax + 16.0, -60.0], np.float32), theta=0.05, phi=-0.22)
+    H, W = 1080, 1920
+    cam = player.camera_params(W, H, device=dev)
+    day = sky.sky_params(1.0, 0.0, device=dev)
+    med = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    scene10 = brickmap.build_scene(blocks10, -5, -5)
+    rays, _ = tracer.primary_rays(cam, H, W, 0)
+    prim = tracer.trace(scene10, *rays, med)
+    fbs = tracer.init_framebuffers(H, W, device=dev)
+    c, a, n = tracer.render_sample(scene10, cam, day, H, W, 0)
+    fbs = tracer.accumulate(fbs, c, a, n, 0)
+    for fid in range(1, RENDER_FRAMES + 1):
+        fbs = tracer.render_accumulate(fbs, scene10, cam, day, H, W, fid)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {"scene_fields": 1, "trace": 1, "render_sample": RENDER_FRAMES + 1,
+            "accumulate": RENDER_FRAMES + 1}
+    print(f"  launch counts of the render main path: {launches}")
+    for name, count in launches.items():
+        check(count == want.get(name, 0), f"kernel {name}: {count} launches in the render run, "
+              f"not {want.get(name, 0)}")
+    for name, t in zip(("color", "albedo", "normal"), fbs[:3]):
+        check(tuple(t.shape) == (H, W, 3) and bool(torch.isfinite(t).all()), f"1080p {name} not finite")
+    check(float(fbs.color.min()) >= 0.0 and float(fbs.albedo.min()) >= 0.0, "negative colour")
+    nlen = fbs.normal.norm(dim=-1)
+    hit_share = float(prim.hit.double().mean())
+    check(0.05 < hit_share < 0.999, f"primary rays hit {hit_share:.3f} of the frame")
+    print(f"  after {RENDER_FRAMES + 1} frames: mean colour {fbs.color.mean(dim=(0, 1)).tolist()}, "
+          f"albedo {fbs.albedo.mean(dim=(0, 1)).tolist()}, |normal| mean {float(nlen.mean()):.4f}; "
+          f"primary rays hit {hit_share:.4f} of the frame")
+
+    vol10 = brickmap.scene_volume(blocks10)
+    plain10 = brickmap.build_fields_plain(vol10)
+    err["scene_fields"] = check_equal("K10 10x10 flat (fine ++ macro)", scene10.flat, plain10)
+    del plain10
+    area33 = pipeline.generate_area(-16, -16, 33, 33, features=True, device=dev)
+    blocks33 = area33["blocks"]
+    del area33
+    scene33 = brickmap.build_scene(blocks33, -16, -16)
+    vol33 = brickmap.scene_volume(blocks33)
+    err["scene_fields"] = max(err["scene_fields"], check_equal(
+        "K10 33x33 flat (fine ++ macro)", scene33.flat, brickmap.build_fields_plain(vol33)))
+    torch.cuda.empty_cache()
+
+    stamp("phase 11: K11t, K11 (day, night, exact, alpha cutout) and K12 against their plain versions")
+    got, gst = tracer.trace(scene10, *rays, med, want_steps=True)
+    want_t, wst = tracer.trace_plain(scene10, *rays, med, want_steps=True)
+    e11t = max(check_equal(f"K11t 1080p primary {k}", getattr(got, k), getattr(want_t, k))
+               for k in ("hit", "block"))
+    for k in ("nx", "ny", "nz", "t"):
+        g, w = getattr(got, k), getattr(want_t, k)
+        n_diff, mx = int((g != w).sum()), float((g.double() - w.double()).abs().max())
+        print(f"  K11t 1080p primary {k}: {n_diff} of {g.numel()} differ, max |diff| {mx:g}")
+        check(n_diff == 0, f"K11t {k}: {n_diff} values differ from the plain version")
+        e11t = max(e11t, mx)
+    check_equal("K11t steps", gst, wst)
+    err["trace"] = e11t
+    night = sky.sky_params(4.0, 0.0, device=dev)  # sun y = -0.758: below the horizon
+    e11 = 0.0
+    for tag, scene, params, exact in (("10x10 day", scene10, day, False), ("33x33 day", scene33, day, False),
+                                      ("10x10 night (sun_time 4.0)", scene10, night, False),
+                                      ("10x10 day exact", scene10, day, True)):
+        e11 = max(e11, check_k11(f"K11 {tag} 1920x1080", scene, cam, params, exact))
+    e11 = max(e11, alpha_cutout_checks(scene10, blocks10, rays, med, day))
+    err["render_sample"] = e11
+    c, a, n = tracer.render_sample(scene10, cam, day, H, W, 3)
+    k12 = tracer.accumulate(fbs, c, a, n, 3)
+    p12 = tracer.accumulate_plain(fbs, c, a, n, 3)
+    err["accumulate"] = max(check_equal(f"K12 {name}", g.view(torch.int32), w.view(torch.int32))
+                            for name, g, w in zip(("color", "albedo", "normal"), k12, p12))
+    kernels.reset_launch_counts()
+    tracer.render_accumulate(fbs, scene10, cam, day, H, W, 9)
+    torch.cuda.synchronize()
+    one = kernels.launch_counts()
+    check(one["render_sample"] == 1 and one["accumulate"] == 1 and sum(one.values()) == 2,
+          f"render_accumulate launched {one}")
+    print("  one render_accumulate: 1 K11 and 1 K12 launch, nothing else")
+
+    stamp("phase 12: timing (warm, CUDA events)")
+    times, bounds = {}, {}
+    for tag, scene in (("10x10", scene10), ("33x33", scene33)):
+        for h, w in ((1080, 1920), (540, 960)):
+            cam_hw = player.camera_params(w, h, device=dev)
+            fb = tracer.init_framebuffers(h, w, device=dev)
+            fb = tracer.render_accumulate(fb, scene, cam_hw, day, h, w, 0)
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for fid in range(1, RENDER_FRAMES + 1):
+                fb = tracer.render_accumulate(fb, scene, cam_hw, day, h, w, fid)
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / RENDER_FRAMES
+            times[("frame", tag, h)] = ms
+            print(f"  {tag} {w}x{h} on {smi}: {ms:.3f} ms/frame = {h * w / ms / 1e3:.3f} Mpaths/s "
+                  f"({RENDER_FRAMES} accumulated frames)")
+        dy = tracer.primary_rays(cam, 1080, 1920, 3)[0][4]
+        _, _, _, st = tracer.render_sample(scene, cam, day, 1080, 1920, 3, want_steps=True)
+        step_stats(f"{tag} 1080p frame 3", st)
+        bounds[("render_sample", tag)] = bound(*k11_counts((st, dy), scene))
+        vol = vol10 if tag == "10x10" else vol33
+        k10_ms = cuda_ms(lambda: kernels.scene_fields(vol), 3)
+        times[("scene_fields", tag)] = k10_ms
+        bounds[("scene_fields", tag)] = bound(*k10_counts(vol, scene.flat))
+        print(f"  K10 {tag} on {smi}: {k10_ms:.3f} ms, bound {bounds[('scene_fields', tag)][0]:.4g} ms "
+              f"by {bounds[('scene_fields', tag)][1]}")
+    p10 = cuda_ms(lambda: brickmap.build_fields_plain(vol10), 1)
+    k11t = cuda_ms(lambda: tracer.trace(scene10, *rays, med), 5)
+    p11t = cuda_ms(lambda: tracer.trace_plain(scene10, *rays, med), 1)
+    k11 = cuda_ms(lambda: tracer.render_sample(scene10, cam, day, H, W, 3), 3)
+    p11 = cuda_ms(lambda: tracer.render_sample_plain(scene10, cam, day, H, W, 3), 1)
+    k12 = cuda_ms(lambda: tracer.accumulate(fbs, c, a, n, 3), 20)
+    p12 = cuda_ms(lambda: tracer.accumulate_plain(fbs, c, a, n, 3), 5)
+    b11t = bound(*k11t_counts(H * W, gst, scene10))
+    b12 = bound(9 * c.numel() * 4, 3 * c.numel() * 3)
+    times.update({"scene_fields": (times[("scene_fields", "10x10")], p10), "trace": (k11t, p11t),
+                  "render_sample": (k11, p11), "accumulate": (k12, p12)})
+    bounds.update({"scene_fields": bounds[("scene_fields", "10x10")], "trace": b11t,
+                   "render_sample": bounds[("render_sample", "10x10")], "accumulate": b12})
+    print(f"  kernels on the 10x10 scene at 1080p on {smi}:")
+    for name in RENDER_KERNELS:
+        (k_ms, pl_ms), (b_ms, b_by) = times[name], bounds[name]
+        print(f"    {name:14s} kernel {k_ms:.3f} ms, bound {b_ms:.4g} ms by {b_by} ({b_ms / k_ms:.1%} "
+              f"of it), plain {pl_ms:.3f} ms ({pl_ms / k_ms:.1f}x), launches {launches[name]}")
+    b33 = bounds[("render_sample", "33x33")]
+    print(f"  K11 33x33 1080p bound {b33[0]:.4g} ms by {b33[1]}; frame {times[('frame', '33x33', 1080)]:.3f} ms")
+    del scene33, vol33, blocks33
+    torch.cuda.empty_cache()
+    return launches, times, bounds
+
+
 def main(argv):
     p = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port once on one GPU.")
     p.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v output")
@@ -1233,11 +1544,16 @@ def main(argv):
     stream_phase(dev, stamp, err, smi)
     stream_launches = reference_phase(dev, stamp, err, stream_times, stream_bounds, smi)
 
+    # -- 10-12. the render path --------------------------------------------------------------
+    render_launches, render_times, render_bounds = render_phases(dev, stamp, err, smi)
+
     # launches: the area kernels' from the featured 5x5 run, the streaming kernels' from the
     # reference workload's drain; times and bounds at the shapes of those paths
     def row(name):
         if name in AREA_KERNELS:
             return (launches[name], times[(name, 5)], bounds[5][name])
+        if name in RENDER_KERNELS:
+            return (render_launches[name], render_times[name], render_bounds[name])
         return (stream_launches[name], stream_times[name], stream_bounds[name])
 
     report = {"kernels": []}

@@ -2,9 +2,10 @@
 
 The port's own copy of the part of ``mega_minecraft_tpu/config.py`` that the port reads
 (stdlib only), so that the port imports nothing of the JAX package: the streaming
-scheduler's budget (read by ``terrain/scheduler.py``).  Fields keep their names,
-defaults and ``MMTPU_<SECTION>_<FIELD>`` environment overrides; later slices add the
-sections they read.
+scheduler's budget (read by ``terrain/scheduler.py``) and the path tracer's settings
+(read by ``render/tracer.py``).  Fields keep their names, defaults and
+``MMTPU_<SECTION>_<FIELD>`` environment overrides; later slices add the sections they
+read.
 """
 
 from __future__ import annotations
@@ -12,6 +13,23 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
+
+
+@dataclass
+class RenderConfig:
+    max_ray_depth: int = 4  # basic_shaders.cu:39
+    fog_scatter: float = -0.005  # basic_shaders.cu:41
+    #: DDA march caps of primary, bounce and shadow rays (a lane gives up after this
+    #: many steps and reports a miss)
+    max_trace_steps: int = 160
+    bounce_trace_steps: int = 32
+    shadow_trace_steps: int = 24
+    #: exact-reference trace mode: bounce and shadow marches capped at max_trace_steps
+    #: and exact (park-and-resolve) alpha cutout on every ray type
+    exact_trace: bool = False
+    #: perturb hit normals with the normal-map atlas (off: the reference's own
+    #: application of that atlas is commented out, basic_shaders.cu:957-958)
+    mapped_normals: bool = False
 
 
 @dataclass
@@ -25,6 +43,7 @@ class TerrainConfig:
 
 @dataclass
 class Config:
+    render: RenderConfig = field(default_factory=RenderConfig)
     terrain: TerrainConfig = field(default_factory=TerrainConfig)
 
 
@@ -36,7 +55,17 @@ def _apply_env(cfg, prefix: str):
             continue
         key = f"{prefix}{f.name.upper()}"
         if key in os.environ:
-            setattr(cfg, f.name, type(sub)(os.environ[key]))
+            setattr(cfg, f.name, _parse(type(sub), os.environ[key]))
+
+
+def _parse(t, raw: str):
+    """An environment string as a field of type ``t``: booleans from the words of
+    ``mega_minecraft_tpu/config.py`` (``bool("0")`` would be true)."""
+    if t is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    if t in (int, float):
+        return t(raw)
+    return raw
 
 
 def load_config(**overrides) -> Config:

@@ -515,4 +515,26 @@ MMT_FN int cave_biome(int wx, int wy, int wz, float max_height, int seed, const 
   return CAVE_NONE;
 }
 
+// ---------------------------------------------------------------------------
+// the renderer's per-pixel RNG (hashes.py:473-494; random_number_generators.h)
+// ---------------------------------------------------------------------------
+
+MMT_FN uint32_t tea(uint32_t v0, uint32_t v1, int rounds) {
+  uint32_t s0 = 0u;
+  for (int i = 0; i < rounds; ++i) {
+    s0 += 0x9E3779B9u;
+    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  return v0;
+}
+
+MMT_FN uint32_t lcg_render(uint32_t s) { return 1664525u * s + 1013904223u; }
+
+// uniform in [0, 1) from the low 24 bits of the next state; advances *state
+MMT_FN float rnd_u01(uint32_t* state) {
+  *state = lcg_render(*state);
+  return (float)(*state & 0x00FFFFFFu) / F(16777216.0);
+}
+
 }  // namespace mmt

@@ -1,0 +1,749 @@
+// K11t (trace_kernel) and K11 (render_sample_kernel): the voxel path tracer, one thread
+// per ray / pixel.
+//
+// Replaces mega_minecraft_tpu/render/tracer.py:104 trace (K11t) and :1259 render_sample
+// with _render_rows:1176, _init_state:1123, _make_body:691, camera.py:88 pixel_rays,
+// sky.py:228 sky_color and the unpackers of materials.py (K11), jitted XLA on the TPU.
+// render_sample_compact (:1415) computes the same image and has no kernel of its own.
+//
+// The JAX program is written in lanes: every ray of a tile takes each DDA step and each
+// bounce in lock step, `where` picks results, loops run while any lane is alive.  Here
+// one thread is one ray (the reference's raygen), its state in registers, and a branch
+// replaces each `where`.  What that changes, and what the kernel does about it:
+//  - The step and bounce caps are per lane.  JAX's counters are global, but every lane
+//    starts at 0 together, so they are per-lane counts, except while a lane is parked by
+//    exact alpha cutout (only a real atlas flags voxels); each lane has its own budget.
+//  - Every bounce draws its ten numbers from the lane's LCG in JAX's order, used or not,
+//    so the streams stay in step with the plain version (tracer.py:776-1093).
+//  - A branch computes only the side it takes, so guarded expressions keep their guards
+//    (the 1e-12 inverse, the cell-exit and quad denominators, the 1e-6 / 1e-12 floors).
+//  - The first bounce (clouds, stars, AOVs, scatter events, depth) is iteration 0 of the
+//    loop; the sky is evaluated only where a lane reads it.
+// Arithmetic follows the plain version (render/tracer.py, render/sky.py) operation by
+// operation: no FMA (-fmad=false), IEEE '/' and sqrtf, libm sinf/cosf/expf/logf/powf/
+// acosf as torch calls them, min/max that propagate NaN like torch.minimum/maximum.
+//
+// Bound on the H100: the DDA's dependent loads (one 4-byte word per step, scattered
+// over the field: 39 MB at 10x10 fits the 50 MB L2, 428 MB at 33x33 does not) and the
+// divergence of rays of one warp that take different step and bounce counts.
+
+#include <stdint.h>
+
+#include "mmt_math.cuh"
+#include "mmt_render_tables.h"
+#include "sky.cuh"
+
+using namespace mmt;
+
+namespace {
+
+__device__ __forceinline__ float fminn(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float fmaxn(float a, float b) { return (a > b || a != a) ? a : b; }
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+__device__ __forceinline__ float signf(float x) { return (float)((0.f < x) - (x < 0.f)); }
+// clip(floor(v), 0, hi) with the plain version's handling of huge and non-finite values
+__device__ __forceinline__ int floor_i(float v, int hi) {
+  float fl = floorf(v);
+  if (fl != fl) return 0;
+  fl = fl < -1.f ? -1.f : (fl > (float)(hi + 1) ? (float)(hi + 1) : fl);
+  return clampi((int)fl, 0, hi);
+}
+__device__ __forceinline__ float inv_guard(float d) {
+  return fabsf(d) < F(1e-12) ? F(1e12) * signf(d) + F(1e12) * (d == 0.f ? 1.f : 0.f) : 1.f / d;
+}
+
+#define STEP_GROW (1.f + F(1e-5))
+
+struct SceneArgs {
+  const int32_t* flat;
+  const uint32_t* tex_diff;
+  int zdim, xdim, ydim;
+  float o0, o1, o2;
+};
+
+struct TraceOut {
+  bool hit;
+  float t;
+  int block;
+  float n[3];
+};
+
+// the crossed-quad intersections of voxel (vx, vz) (tracer.py:256-263)
+__device__ __forceinline__ void quads(float ox, float oz, float dx, float dz, int vx, int vz, float o0,
+                                      float o2, float t, float t_exit, float& t_a, float& t_b, bool& ok_a,
+                                      bool& ok_b) {
+  float cx0 = (float)vx + o0, cz0 = (float)vz + o2;
+  float den_a = dx - dz, den_b = dx + dz;
+  bool small_a = fabsf(den_a) < F(1e-6), small_b = fabsf(den_b) < F(1e-6);
+  t_a = ((cx0 - cz0) + (oz - ox)) / (small_a ? 1.f : den_a);
+  t_b = (((1.f + cx0) + cz0) - (ox + oz)) / (small_b ? 1.f : den_b);
+  ok_a = !small_a && t_a >= t && t_a <= t_exit;
+  ok_b = !small_b && t_b >= t && t_b <= t_exit;
+}
+
+__device__ __forceinline__ bool texel_alpha(const uint32_t* tex_diff, int val, float u, float v, int face_base) {
+  float cu = u - floorf(u), cv = v - floorf(v);
+  cu = cu < 0.f ? 0.f : (cu > F(0.999) ? F(0.999) : cu);
+  cv = cv < 0.f ? 0.f : (cv > F(0.999) ? F(0.999) : cv);
+  int tu = (int)floorf(cu * 16.f), tv = (int)floorf(cv * 16.f);
+  return ((__ldg(tex_diff + (long long)val * (3 * 8 * 256) + face_base + tv * 16 + tu) >> 24) & 1u) != 0u;
+}
+
+// the DDA of one ray (tracer.py:104-532); steps: DDA steps taken
+__device__ TraceOut trace_ray(const SceneArgs& sc, float ox, float oy, float oz, float dx, float dy, float dz,
+                              int medium, int max_steps, bool active, bool stochastic, uint32_t seed,
+                              bool use_macro, int* steps_out) {
+  const int MS = MACRO_SCALE;
+  const int xm = sc.xdim / MS, ym = sc.ydim / MS;
+  const long long macro_off = (long long)sc.zdim * sc.xdim * sc.ydim;
+  const float o0 = sc.o0, o1 = sc.o1, o2 = sc.o2;
+  float idx = inv_guard(dx), idy = inv_guard(dy), idz = inv_guard(dz);
+  float tx0 = (o0 - ox) * idx, tx1 = ((o0 + (float)sc.xdim) - ox) * idx;
+  float ty0 = (o1 - oy) * idy, ty1 = ((o1 + (float)sc.ydim) - oy) * idy;
+  float tz0 = (o2 - oz) * idz, tz1 = ((o2 + (float)sc.zdim) - oz) * idz;
+  float t_in = fmaxn(fmaxn(fminn(tx0, tx1), fminn(ty0, ty1)), fminn(tz0, tz1));
+  float t_out = fminn(fminn(fmaxn(tx0, tx1), fmaxn(ty0, ty1)), fmaxn(tz0, tz1));
+  float t_start = fmaxn(t_in, 0.f) + F(1e-4);
+  bool alive = t_out > t_start && t_out > 0.f && active;
+  float horiz = sqrtf(dx * dx + dz * dz);
+  t_out = fminn(t_out, t_start + F(320.0) / fmaxn(horiz, F(1e-3)));
+  const bool is_air = medium == BLOCK_AIR;
+  const bool ascending = dy >= 0.f;
+  float h_inf = fmaxn(fmaxn(fabsf(dx), fabsf(dz)), F(1e-6));
+  float inv_h = 1.f / h_inf;
+  float inv_dy_abs = 1.f / fmaxn(fabsf(dy), F(1e-6));
+  float inv_maxc = 1.f / fmaxn(h_inf, fabsf(dy));
+
+  float t = alive ? t_start : F(1e20);
+  bool hit = false, hit_x = false, x_use_a = false, pending = false, coarse = false;
+  int hit_block = 0, steps = 0;
+  for (;;) {
+    while (alive && steps < max_steps) {
+      ++steps;
+      int vx = floor_i((ox + dx * t) - o0, sc.xdim - 1);
+      int vy = floor_i((oy + dy * t) - o1, sc.ydim - 1);
+      int vz = floor_i((oz + dz * t) - o2, sc.zdim - 1);
+      long long widx = coarse ? macro_off + ((long long)(vz / MS) * xm + vx / MS) * ym + vy / MS
+                              : ((long long)vz * sc.xdim + vx) * sc.ydim + vy;
+      uint32_t packed = (uint32_t)__ldg(sc.flat + widx);
+      int val = (int)(packed & 0xFFu);
+      bool is_solid = val < EMPTY_BASE;
+      bool descend = coarse && is_solid;
+      float nsol = is_solid ? 0.f : 1.f;
+      float up_b = (float)((packed >> 8) & 0x3Fu) * nsol;
+      float c2_b = (float)((packed >> 14) & 0x3Fu) * nsol;
+      float c8_b = (float)((packed >> 20) & 0x3Fu) * nsol;
+      float sky_q = (float)((packed >> 26) & 0x1Fu) * nsol;
+      bool is_x = val >= X_SHAPED_LO && val < X_SHAPED_HI;
+
+      float csz = coarse ? (float)MS : 1.f;
+      float cellx = (float)(coarse ? vx / MS * MS : vx), celly = (float)(coarse ? vy / MS * MS : vy),
+            cellz = (float)(coarse ? vz / MS * MS : vz);
+      float bx = dx > 0.f ? (cellx + o0) + csz : cellx + o0;
+      float by = dy > 0.f ? (celly + o1) + csz : celly + o1;
+      float bz = dz > 0.f ? (cellz + o2) + csz : cellz + o2;
+      float tex = fabsf(dx) < F(1e-12) ? F(3e38) : (bx - ox) * idx;
+      float tey = fabsf(dy) < F(1e-12) ? F(3e38) : (by - oy) * idy;
+      float tez = fabsf(dz) < F(1e-12) ? F(3e38) : (bz - oz) * idz;
+      float t_exit = fminn(fminn(tex, tey), tez);
+
+      bool candidate = !coarse && (is_air ? is_solid : val != medium);
+      float t_a, t_b;
+      bool ok_a, ok_b;
+      quads(ox, oz, dx, dz, vx, vz, o0, o2, t, t_exit, t_a, t_b, ok_a, ok_b);
+      bool flagged = candidate && (packed & 0x80000000u);
+      bool pend_new = false, opaque = true;
+      if (stochastic) {
+        if (flagged) {
+          float t_frac = (float)((packed >> 8) & 0xFFu) * F(1.0 / 255.0);
+          uint32_t h = ((uint32_t)vx * 2654435761u) ^ ((uint32_t)vy * 2246822519u + (uint32_t)vz * 3266489917u);
+          h ^= seed;
+          opaque = rnd_u01(&h) >= t_frac;
+        }
+      } else {
+        pend_new = flagged;
+      }
+      bool a_first = ok_a && (!ok_b || t_a <= t_b);
+      bool new_hit = candidate && !pend_new && (is_x ? (ok_a || ok_b) : true) && opaque;
+      if (new_hit) {
+        hit = true;
+        hit_block = is_solid ? val : BLOCK_AIR;
+        if (is_x) {
+          hit_x = true;
+          x_use_a = a_first;
+          t = a_first ? t_a : t_b;
+        }
+      }
+      pending = pending || pend_new;
+      alive = alive && !new_hit && !pend_new;
+
+      float skip3d = ((float)val - (float)EMPTY_BASE) * inv_maxc;
+      float s_up = (up_b - 1.f) * inv_h;
+      float s2 = fminn((c2_b - 1.f) * inv_h, 2.f * inv_dy_abs);
+      float s8 = fminn((c8_b - 1.f) * inv_h, 8.f * inv_dy_abs);
+      float s_sky = fminn((float)SKY_R * inv_h, (4.f * sky_q - 1.f) * inv_dy_abs);
+      float skip_dir = ascending ? s_up : fmaxn(fmaxn(s2, s8), s_sky);
+      float skip = (is_air ? fmaxn(skip3d, skip_dir) : 0.f) * (coarse ? (float)MS : 1.f);
+      float t_next = fmaxn(t + fmaxn(skip, 0.f), t_exit);
+      t_next = fmaxn(t_next, t) * STEP_GROW + F(1e-4);
+      if (alive && !descend) t = t_next;
+      bool sat = ascending ? up_b >= 63.f : (c8_b >= 63.f || sky_q >= 8.f);
+      if (use_macro) coarse = (coarse && !descend) || (alive && !coarse && is_air && sat);
+      alive = alive && t < t_out;
+    }
+    if (!pending) break;
+    // resolve the parked voxel: alpha-test its texel(s) (tracer.py:364-456)
+    int vx = floor_i((ox + dx * t) - o0, sc.xdim - 1);
+    int vy = floor_i((oy + dy * t) - o1, sc.ydim - 1);
+    int vz = floor_i((oz + dz * t) - o2, sc.zdim - 1);
+    int val = (int)((uint32_t)__ldg(sc.flat + ((long long)vz * sc.xdim + vx) * sc.ydim + vy) & 0xFFu);
+    bool is_x = val >= X_SHAPED_LO && val < X_SHAPED_HI;
+    float fx = (float)vx, fy = (float)vy, fz = (float)vz;
+    float bx = dx > 0.f ? (fx + o0) + 1.f : fx + o0;
+    float by = dy > 0.f ? (fy + o1) + 1.f : fy + o1;
+    float bz = dz > 0.f ? (fz + o2) + 1.f : fz + o2;
+    float tex = fabsf(dx) < F(1e-12) ? F(3e38) : (bx - ox) * idx;
+    float tey = fabsf(dy) < F(1e-12) ? F(3e38) : (by - oy) * idy;
+    float tez = fabsf(dz) < F(1e-12) ? F(3e38) : (bz - oz) * idz;
+    float t_exit = fminn(fminn(tex, tey), tez);
+    float t_a, t_b;
+    bool ok_a, ok_b;
+    quads(ox, oz, dx, dz, vx, vz, o0, o2, t, t_exit, t_a, t_b, ok_a, ok_b);
+    bool a1, a2 = false;
+    if (is_x) {
+      float qa_y = oy + dy * t_a, qb_y = oy + dy * t_b;
+      a1 = texel_alpha(sc.tex_diff, val, ox + dx * t_a, 1.f - (qa_y - floorf(qa_y)), 0);
+      a2 = texel_alpha(sc.tex_diff, val, ox + dx * t_b, 1.f - (qb_y - floorf(qb_y)), 0);
+    } else {
+      float exf = (((fx + (dx < 0.f ? 1.f : 0.f)) + o0) - ox) * idx;
+      float eyf = (((fy + (dy < 0.f ? 1.f : 0.f)) + o1) - oy) * idy;
+      float ezf = (((fz + (dz < 0.f ? 1.f : 0.f)) + o2) - oz) * idz;
+      float t_en = fmaxn(fmaxn(exf, eyf), ezf);
+      bool on_yf = eyf >= t_en && exf < t_en, on_xf = exf >= t_en;
+      int face_b = on_yf ? (dy < 0.f ? 1 * 8 * 256 : 2 * 8 * 256) : 0;
+      float hxf = ox + dx * t_en, hyf = oy + dy * t_en, hzf = oz + dz * t_en;
+      float fu = on_yf ? hxf : (on_xf ? hzf : hxf);
+      float fv = on_yf ? hzf : 1.f - (hyf - floorf(hyf));
+      a1 = texel_alpha(sc.tex_diff, val, fu, fv, face_b);
+    }
+    ok_a = ok_a && a1;
+    ok_b = ok_b && a2;
+    bool a_first = ok_a && (!ok_b || t_a <= t_b);
+    bool res_hit = is_x ? (ok_a || ok_b) : a1;
+    if (res_hit) {
+      hit = true;
+      hit_block = val;
+      if (is_x) {
+        hit_x = true;
+        x_use_a = a_first;
+        t = a_first ? t_a : t_b;
+      }
+    } else {
+      t = fmaxn(t, t_exit) * STEP_GROW + F(1e-4);
+      alive = t < t_out;
+    }
+    pending = false;
+  }
+
+  // hit voxel and entry-face normal
+  float vxf = floorf((ox + dx * t) - o0), vyf = floorf((oy + dy * t) - o1), vzf = floorf((oz + dz * t) - o2);
+  float ex = (((vxf + (dx < 0.f ? 1.f : 0.f)) + o0) - ox) * idx;
+  float ey = (((vyf + (dy < 0.f ? 1.f : 0.f)) + o1) - oy) * idy;
+  float ez = (((vzf + (dz < 0.f ? 1.f : 0.f)) + o2) - oz) * idz;
+  float t_entry = fmaxn(fmaxn(ex, ey), ez);
+  TraceOut r;
+  r.n[0] = ex >= t_entry ? -signf(dx) : 0.f;
+  r.n[1] = (ey >= t_entry && ex < t_entry) ? -signf(dy) : 0.f;
+  r.n[2] = (ez >= t_entry && ex < t_entry && ey < t_entry) ? -signf(dz) : 0.f;
+  if (hit_x) {
+    const float s = F(0.70710678);
+    float sd_a = signf(dx - dz), sd_b = signf(dx + dz);
+    r.n[0] = x_use_a ? -sd_a * s : -sd_b * s;
+    r.n[1] = 0.f;
+    r.n[2] = x_use_a ? sd_a * s : -sd_b * s;
+  }
+  r.t = hit ? (hit_x ? t : fmaxn(t_entry, 0.f)) : F(1e20);
+  if (medium != BLOCK_AIR && hit_block == BLOCK_AIR && hit) {
+    r.n[0] = -r.n[0];
+    r.n[1] = -r.n[1];
+    r.n[2] = -r.n[2];
+  }
+  r.hit = hit;
+  r.block = hit_block;
+  *steps_out = steps;
+  return r;
+}
+
+// ---------------------------------------------------------------------------------
+// sampling helpers (tracer.py:542-659)
+// ---------------------------------------------------------------------------------
+
+__device__ __forceinline__ float rsqrt_floor(float x) { return 1.f / sqrtf(fmaxn(x, F(1e-12))); }
+
+__device__ void perp_dirs(float nx, float ny, float nz, float* p1, float* p2) {
+  bool ax = fabsf(nx) < F(0.57735026918962576450914878050);
+  bool ay = fabsf(ny) < F(0.57735026918962576450914878050);
+  float ox = ax ? 1.f : 0.f, oy = (!ax && ay) ? 1.f : 0.f, oz = (!ax && !ay) ? 1.f : 0.f;
+  float p1x = ny * oz - nz * oy, p1y = nz * ox - nx * oz, p1z = nx * oy - ny * ox;
+  float inv = rsqrt_floor(p1x * p1x + p1y * p1y + p1z * p1z);
+  p1x = p1x * inv;
+  p1y = p1y * inv;
+  p1z = p1z * inv;
+  float p2x = ny * p1z - nz * p1y, p2y = nz * p1x - nx * p1z, p2z = nx * p1y - ny * p1x;
+  float inv2 = rsqrt_floor(p2x * p2x + p2y * p2y + p2z * p2z);
+  p1[0] = p1x, p1[1] = p1y, p1[2] = p1z;
+  p2[0] = p2x * inv2, p2[1] = p2y * inv2, p2[2] = p2z * inv2;
+}
+
+__device__ void cosine_hemisphere(const float* n, float s1, float s2, float* out) {
+  float up = sqrtf(s1);
+  float over = sqrtf(fmaxn(1.f - s1, 0.f));
+  float around = s2 * (float)(2.0 * 3.141592653589793);
+  float p1[3], p2[3];
+  perp_dirs(n[0], n[1], n[2], p1, p2);
+  float ca = cosf(around) * over, sa = sinf(around) * over;
+  for (int k = 0; k < 3; ++k) out[k] = up * n[k] + ca * p1[k] + sa * p2[k];
+}
+
+__device__ void sample_star(const SkyP& p, bool is_sun, bool scattering, float s1, float s2, float* out) {
+  const float* n = is_sun ? p.sun : p.moon;
+  if (scattering) {
+    out[0] = n[0], out[1] = n[1], out[2] = n[2];
+    return;
+  }
+  float radius = is_sun ? F(0.1000) : F(0.0775);
+  float p1[3], p2[3];
+  perp_dirs(n[0], n[1], n[2], p1, p2);
+  float around = s2 * (float)(2.0 * 3.141592653589793);
+  float c = cosf(around), s = sinf(around);
+  float dd[3];
+  for (int k = 0; k < 3; ++k) dd[k] = c * p1[k] + s * p2[k];
+  float inv = rsqrt_floor(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]);
+  float r[3];
+  for (int k = 0; k < 3; ++k) r[k] = n[k] + s1 * radius * dd[k] * inv;
+  float nn = 1.f / sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
+  for (int k = 0; k < 3; ++k) out[k] = r[k] * nn;
+}
+
+__device__ __forceinline__ void reflect(const float* d, const float* n, float sgn, float* out) {
+  float nx = sgn * n[0], ny = sgn * n[1], nz = sgn * n[2];
+  float dd = d[0] * nx + d[1] * ny + d[2] * nz;
+  out[0] = d[0] - 2.f * dd * nx;
+  out[1] = d[1] - 2.f * dd * ny;
+  out[2] = d[2] - 2.f * dd * nz;
+}
+
+__device__ void refract(const float* d, const float* n, float sgn, float eta, float* out) {
+  float nx = sgn * n[0], ny = sgn * n[1], nz = sgn * n[2];
+  float nd = nx * d[0] + ny * d[1] + nz * d[2];
+  float k = 1.f - eta * eta * (1.f - nd * nd);
+  bool ok = k >= 0.f;
+  float ks = sqrtf(fmaxn(k, 0.f));
+  float rx = eta * d[0] - (eta * nd + ks) * nx;
+  float ry = eta * d[1] - (eta * nd + ks) * ny;
+  float rz = eta * d[2] - (eta * nd + ks) * nz;
+  float inv = rsqrt_floor(rx * rx + ry * ry + rz * rz);
+  out[0] = ok ? rx * inv : 0.f;
+  out[1] = ok ? ry * inv : 0.f;
+  out[2] = ok ? rz * inv : 0.f;
+}
+
+__device__ __forceinline__ float schlick(const float* d, const float* n, float sgn, float ior) {
+  float cos_t = fabsf(d[0] * (sgn * n[0]) + d[1] * (sgn * n[1]) + d[2] * (sgn * n[2]));
+  float r0 = (1.f - ior) / (1.f + ior);
+  r0 = r0 * r0;
+  return r0 + (1.f - r0) * powf(1.f - cos_t, 5.f);
+}
+
+__device__ void ggx_sample(const float* n, float rough, float s1, float s2, float* out) {
+  float a = rough * rough;
+  float phi = (float)(2.0 * 3.141592653589793) * s1;
+  float cos_t = sqrtf((1.f - s2) / (1.f + (a * a - 1.f) * s2));
+  float sin_t = sqrtf(fmaxn(1.f - cos_t * cos_t, 0.f));
+  float p1[3], p2[3];
+  perp_dirs(n[0], n[1], n[2], p1, p2);
+  float cp = cosf(phi), sp = sinf(phi);
+  float w[3];
+  for (int k = 0; k < 3; ++k) w[k] = cp * sin_t * p1[k] + sp * sin_t * p2[k] + cos_t * n[k];
+  float inv = rsqrt_floor(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]);
+  for (int k = 0; k < 3; ++k) out[k] = w[k] * inv;
+}
+
+__device__ float trowbridge_reitz_d(const float* wh, const float* n, float rough) {
+  float c = wh[0] * n[0] + wh[1] * n[1] + wh[2] * n[2];
+  float cos2 = c * c;
+  float tan2 = (1.f - cos2) / fmaxn(cos2, F(1e-12));
+  float cos4 = cos2 * cos2;
+  float e = fabsf(sqrtf(tan2) / (rough * rough));
+  float ope = 1.f + e;
+  float d = 1.f / (F(3.141592653589793) * rough * rough * fmaxn(cos4, F(1e-12)) * (ope * ope));
+  return fmaxn(d, 0.f);
+}
+
+__device__ void wave_normal(float px, float py, float pz, float* n, float time) {
+  float ax = (px + py) * F(0.45), az = pz + py, at = time * F(0.3);
+  float perlin_x = fbm_p(ax, az, at, 4);
+  float perlin_z = fbm_p(ax + F(74159.21), az + F(21982.43), at + F(18923.34), 4);
+  float nx2 = n[0] + perlin_x * F(0.3), nz2 = n[2] + perlin_z * F(0.3);
+  float inv = rsqrt_floor(nx2 * nx2 + n[1] * n[1] + nz2 * nz2);
+  n[0] = nx2 * inv;
+  n[1] = n[1] * inv;
+  n[2] = nz2 * inv;
+}
+
+__device__ __forceinline__ float mat_tab(const float* tab, int mat) { return tab[mat]; }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------------
+// K11t: trace() over N rays
+// ---------------------------------------------------------------------------------
+
+struct TraceArgs {
+  SceneArgs sc;
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  const uint8_t* medium;
+  const uint8_t* active;  // or null
+  const int32_t* seed;    // u32 bits, or null (exact alpha)
+  int n, max_steps, use_macro;
+  uint8_t* hit;
+  float* t;
+  uint8_t* block;
+  float *nx, *ny, *nz;
+  int32_t* steps;  // or null
+};
+
+__global__ void trace_kernel(TraceArgs a) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  int steps;
+  TraceOut r = trace_ray(a.sc, a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.medium[i], a.max_steps,
+                         a.active ? a.active[i] != 0 : true, a.seed != nullptr,
+                         a.seed ? (uint32_t)a.seed[i] : 0u, a.use_macro != 0, &steps);
+  a.hit[i] = r.hit;
+  a.t[i] = r.t;
+  a.block[i] = (uint8_t)r.block;
+  a.nx[i] = r.n[0];
+  a.ny[i] = r.n[1];
+  a.nz[i] = r.n[2];
+  if (a.steps) a.steps[i] = steps;
+}
+
+// ---------------------------------------------------------------------------------
+// K11: one 1-spp sample, one thread per pixel
+// ---------------------------------------------------------------------------------
+
+struct RenderArgs {
+  SceneArgs sc;
+  const uint32_t *tex_emis, *tex_norm;
+  const float* params;  // cam: position, forward, right, up, pixel_length; sky: sun, moon, rot, time
+  int height, width, row0, col0, full_height, full_width;
+  uint32_t frame_id;
+  int exact, max_ray_depth, max_loop_iters, max_steps, bounce_steps, shadow_steps, mapped_normals;
+  float fog_scatter;
+  float *color, *albedo, *normal, *depth;
+  int32_t* steps;  // [H, W, 4] or null: primary, bounce, shadow steps, radiance rays
+};
+
+__global__ void __launch_bounds__(128) render_sample_kernel(RenderArgs a) {
+  int px = blockIdx.x * blockDim.x + threadIdx.x, py = blockIdx.y;
+  if (px >= a.width || py >= a.height) return;
+  const float* P = a.params;
+  SkyP sky;
+  for (int k = 0; k < 3; ++k) sky.sun[k] = P[14 + k], sky.moon[k] = P[17 + k];
+  for (int k = 0; k < 9; ++k) sky.rot[k] = P[20 + k];
+  sky.time = P[29];
+  const float sun_y = sky.sun[1];
+
+  // ---- init (tracer.py:1123-1173; camera.py:88-123)
+  int ix = a.col0 + px, iy = a.row0 + py;
+  uint32_t seed = tea((uint32_t)(iy * a.full_width + ix), a.frame_id, 4);
+  float j1 = rnd_u01(&seed), j2 = rnd_u01(&seed);
+  float sx = (((float)ix - (float)a.full_width * 0.5f) + j1) * P[12];
+  float sy = (((float)iy - (float)a.full_height * 0.5f) + j2) * P[13];
+  float dir[3], pos[3];
+  for (int k = 0; k < 3; ++k) dir[k] = (P[3 + k] - P[6 + k] * sx) - P[9 + k] * sy;
+  float norm = sqrtf(dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2]);
+  for (int k = 0; k < 3; ++k) dir[k] = dir[k] / norm, pos[k] = P[k] + 0.f;
+
+  int depth = 0, medium = BLOCK_AIR;
+  float ray[3] = {1.f, 1.f, 1.f}, pix[3] = {0.f, 0.f, 0.f}, alb[3] = {0.f, 0.f, 0.f}, nrm[3] = {0.f, 0.f, 0.f};
+  float spos[3] = {pos[0], pos[1], pos[2]}, fogc[3] = {0.f, 0.f, 0.f};
+  float sfac = 1.f, ff = 0.f, depth_out = F(1e6);
+  bool needs_first = true, done = false, scattered = false;
+  int st_primary = 0, st_bounce = 0, st_shadow = 0, n_rays = 0;
+
+  for (int it = 0; it < a.max_loop_iters; ++it) {
+    const bool first = it == 0;
+    const bool active = !done && !scattered && depth < a.max_ray_depth;
+    if (!first && !active) break;
+    bool nf = first && needs_first;
+    const uint32_t seed0 = seed;
+
+    // ---- radiance DDA
+    int steps;
+    const bool exact_ray = first || a.exact;
+    TraceOut res = trace_ray(a.sc, pos[0], pos[1], pos[2], dir[0], dir[1], dir[2], medium,
+                             exact_ray ? a.max_steps : a.bounce_steps, active, !exact_ray, seed0, true, &steps);
+    if (first) st_primary += steps, depth_out = fminn(res.t, F(1e6));
+    else st_bounce += steps;
+    n_rays += active ? 1 : 0;
+    const bool hit = res.hit && active, miss = !res.hit && active;
+    float is[3];
+    for (int k = 0; k < 3; ++k) is[k] = pos[k] + dir[k] * res.t;
+
+    // ---- the lane's ten draws of this bounce, in JAX's order
+    float r_scatter = rnd_u01(&seed), r_spec = rnd_u01(&seed), g1 = rnd_u01(&seed), g2 = rnd_u01(&seed);
+    float gx1 = rnd_u01(&seed), gx2 = rnd_u01(&seed), x1 = rnd_u01(&seed), x2 = rnd_u01(&seed);
+    float r_sun = rnd_u01(&seed);
+    const uint32_t shadow_seed = seed ^ 0x5BD1E995u;
+    float r_rr = rnd_u01(&seed);
+
+    float cov = 0.f, fog[3] = {0.f, 0.f, 0.f};
+    if (nf) {
+      cov = cloud_coverage(pos[0], pos[2], dir[0], dir[1], dir[2], sky);
+      if (hit) sky_color(dir[0], dir[1], dir[2], sky, false, true, true, cov, fog);
+    }
+
+    // ---- miss (sky)
+    if (miss) {
+      float sc[3];
+      sky_color(dir[0], dir[1], dir[2], sky, true, first, nf, cov, sc);
+      for (int k = 0; k < 3; ++k) pix[k] = pix[k] + sc[k] * ray[k];
+      if (nf) {
+        float sky_time = logf(fmaxn(1.f - r_scatter, F(1e-7))) / a.fog_scatter;
+        float m_sf = smoothstep(0.f, F(3.5), r_scatter);
+        for (int k = 0; k < 3; ++k) {
+          alb[k] = sc[k];
+          nrm[k] = -dir[k];
+          spos[k] = pos[k] + dir[k] * sky_time;
+          fogc[k] = sc[k];
+        }
+        scattered = true;
+        sfac = m_sf;
+        ff = 1.f - m_sf;
+        nf = false;
+      }
+      done = true;
+    }
+
+    // ---- hit
+    bool spec = false, emissive = false, h_shade = false;
+    float new_p[3] = {pos[0], pos[1], pos[2]}, new_d[3] = {dir[0], dir[1], dir[2]};
+    if (hit) {
+      const bool exit_to_air = medium != BLOCK_AIR && res.block == BLOCK_AIR;
+      const int eff = exit_to_air ? medium : res.block;
+      const uint32_t props = BLOCK_PROPS_TAB[eff];
+      const float inv255 = F(1.0 / 255.0);
+      float col[3] = {(float)(props & 0xFFu) * inv255, (float)((props >> 8) & 0xFFu) * inv255,
+                      (float)((props >> 16) & 0xFFu) * inv255};
+      const int mat = (int)((props >> 24) & 0x7u);
+      const bool is_spec = MAT_SPECULAR_TAB[mat] != 0;
+      const float rough = mat_tab(MAT_ROUGHNESS_TAB, mat), ior = mat_tab(MAT_IOR_TAB, mat);
+      const bool on_y = fabsf(res.n[1]) > 0.5f, on_x = fabsf(res.n[0]) > 0.5f;
+      const int face = on_y ? (res.n[1] > 0.f ? 1 : 2) : 0;
+      float fu = on_y ? fract(is[0]) : (on_x ? fract(is[2]) : fract(is[0]));
+      float fv = on_y ? fract(is[2]) : 1.f - fract(is[1]);
+      int tu = floor_i(fu * 16.f, 15), tv = floor_i(fv * 16.f, 15);
+      float vxf = floorf(is[0] - res.n[0] * 0.5f), vyf = floorf(is[1] - res.n[1] * 0.5f),
+            vzf = floorf(is[2] - res.n[2] * 0.5f);
+      float hface = rand1_from3(vxf + res.n[0], vyf + res.n[1] * 2.f, vzf + res.n[2] * 3.f);
+      int variant = floor_i(hface * 8.f, 7);
+      long long tex_idx = ((long long)((eff * 3 + face) * 8 + variant)) * 256 + tv * 16 + tu;
+      uint32_t texel = __ldg(a.sc.tex_diff + tex_idx);
+      if (!exit_to_air) {
+        col[0] = (float)(texel & 0xFFu) * inv255;
+        col[1] = (float)((texel >> 8) & 0xFFu) * inv255;
+        col[2] = (float)((texel >> 16) & 0xFFu) * inv255;
+      }
+      const float emis_w_tex = (float)((texel >> 25) & 0x7Fu) * F(1.0 / 127.0);
+      const float horiz = sqrtf(dir[0] * dir[0] + dir[2] * dir[2]) * res.t;
+      const float hit_fog = smoothstep(F(220.0), F(300.0), horiz);
+
+      // volumetric scatter event at the first hit
+      bool h_scatter = false;
+      if (nf) {
+        float chance = (1.f - expf(a.fog_scatter * res.t)) * smoothstep(F(0.55), F(0.35), sun_y);
+        h_scatter = chance > r_scatter;
+        if (h_scatter) {
+          float sc_t = logf(fmaxn(1.f - r_scatter, F(1e-7))) / a.fog_scatter;
+          for (int k = 0; k < 3; ++k) {
+            alb[k] = col[k];
+            nrm[k] = res.n[k];
+            spos[k] = pos[k] + dir[k] * sc_t;
+            fogc[k] = fog[k];
+          }
+          scattered = true;
+          sfac = smoothstep(0.f, F(3.5), 1.f - r_scatter);
+          ff = hit_fog;
+          nf = false;
+        }
+      }
+      h_shade = !h_scatter;
+
+      float n[3] = {res.n[0], res.n[1], res.n[2]};
+      if (h_shade && a.mapped_normals && !exit_to_air && !(res.block >= X_SHAPED_LO && res.block < X_SHAPED_HI)) {
+        uint32_t tn = __ldg(a.tex_norm + tex_idx);
+        float tnx = (float)(tn & 0xFFu) * inv255 * 2.f - 1.f, tny = (float)((tn >> 8) & 0xFFu) * inv255 * 2.f - 1.f,
+              tnz = (float)((tn >> 16) & 0xFFu) * inv255 * 2.f - 1.f;
+        float tx = (on_y || !on_x) ? 1.f : 0.f, tz = (!on_y && on_x) ? 1.f : 0.f;
+        float by = on_y ? 0.f : -1.f, bz = on_y ? 1.f : 0.f;
+        float pnx = tx * tnx + 0.f * tny + n[0] * tnz;
+        float pny = by * tny + n[1] * tnz;
+        float pnz = tz * tnx + bz * tny + n[2] * tnz;
+        float inv_n = rsqrtf(fmaxn(pnx * pnx + pny * pny + pnz * pnz, F(1e-12)));
+        n[0] = pnx * inv_n, n[1] = pny * inv_n, n[2] = pnz * inv_n;
+      }
+      if (h_shade && MAT_WAVY_TAB[mat]) wave_normal(is[0], is[1], is[2], n, sky.time);
+
+      spec = h_shade && is_spec;
+      if (spec) {
+        float entering = dir[0] * n[0] + dir[1] * n[1] + dir[2] * n[2];
+        bool ent = entering < 0.f;
+        float nd[3], off, w;
+        if (ent) {
+          bool refr_e = r_spec < -entering;
+          float fres_in = schlick(dir, n, 1.f, ior);
+          if (refr_e) refract(dir, n, 1.f, 1.f / fmaxn(ior, F(1e-6)), nd);
+          else reflect(dir, n, 1.f, nd);
+          off = refr_e ? F(-0.001) : F(0.001);
+          w = refr_e ? 1.f - fres_in : fres_in;
+          if (refr_e) medium = res.block;
+        } else {
+          float sin_tt = ior * sqrtf(fmaxn(1.f - entering * entering, 0.f));
+          bool refr_x = r_spec < entering / fmaxn(sin_tt, 1.f);
+          float fres_out = schlick(dir, n, -1.f, ior);
+          if (refr_x) refract(dir, n, -1.f, ior, nd);
+          else reflect(dir, n, -1.f, nd);
+          off = refr_x ? F(0.001) : F(-0.001);
+          w = refr_x ? 1.f - fres_out : fres_out;
+          if (refr_x) medium = BLOCK_AIR;
+        }
+        w = w * ior;
+        for (int k = 0; k < 3; ++k) {
+          ray[k] = ray[k] * w * col[k];
+          new_p[k] = is[k] + n[k] * off;
+          new_d[k] = nd[k];
+        }
+      } else if (h_shade) {
+        emissive = !exit_to_air && (texel & 0xFFFFFFu) == 0u && emis_w_tex > 0.f;
+        if (emissive) {
+          uint32_t et = __ldg(a.tex_emis + tex_idx);
+          float e_strength = nf ? F(1.5) : emis_w_tex * 100.f;
+          float ec[3] = {(float)(et & 0xFFu) * inv255 * e_strength, (float)((et >> 8) & 0xFFu) * inv255 * e_strength,
+                         (float)((et >> 16) & 0xFFu) * inv255 * e_strength};
+          for (int k = 0; k < 3; ++k) pix[k] = pix[k] + ray[k] * ec[k];
+          if (nf) {
+            for (int k = 0; k < 3; ++k) alb[k] = ec[k], nrm[k] = n[k], fogc[k] = fog[k];
+            ff = hit_fog;
+            nf = false;
+          }
+        } else {
+          float d[3], dcol[3] = {col[0], col[1], col[2]};
+          if (rough > 0.f) {
+            float rc = fmaxn(rough, F(1e-3)), wh[3];
+            ggx_sample(n, rc, gx1, gx2, wh);
+            float wo[3] = {-dir[0], -dir[1], -dir[2]};
+            float owh = wo[0] * wh[0] + wo[1] * wh[1] + wo[2] * wh[2];
+            for (int k = 0; k < 3; ++k) d[k] = 2.f * owh * wh[k] - wo[k];
+            float minv = rsqrt_floor(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+            for (int k = 0; k < 3; ++k) d[k] = d[k] * minv;
+            float dg = trowbridge_reitz_d(wh, n, rc);
+            float ndl = fabsf(n[0] * d[0] + n[1] * d[1] + n[2] * d[2]);
+            float ndv = fabsf(n[0] * wo[0] + n[1] * wo[1] + n[2] * wo[2]);
+            float mm = dg / fmaxn(4.f * ndl * ndv, F(1e-6));
+            mm = mm < 1.f ? 1.f : (mm > 4.f ? 4.f : mm);
+            for (int k = 0; k < 3; ++k) dcol[k] = col[k] * mm;
+          } else {
+            cosine_hemisphere(n, g1, g2, d);
+          }
+          for (int k = 0; k < 3; ++k) {
+            ray[k] = ray[k] * dcol[k];
+            new_p[k] = is[k] + n[k] * F(0.001);
+            new_d[k] = d[k];
+          }
+        }
+      }
+      if (h_shade && nf) {  // first-hit AOVs of a shaded (non-emissive) hit
+        for (int k = 0; k < 3; ++k) alb[k] = col[k], nrm[k] = n[k], fogc[k] = fog[k];
+        ff = hit_fog;
+        nf = false;
+      }
+      done = done || emissive;
+    }
+    if (first) needs_first = nf;
+
+    // ---- NEE shadow ray (raygen:626-665)
+    const bool nee = (active && !spec && !done) || (scattered && active);
+    const bool is_sun = r_sun < linearstep(F(-0.1), F(0.1), sun_y);
+    float sd[3];
+    sample_star(sky, is_sun, scattered, x1, x2, sd);
+    const float* sp = scattered ? spos : new_p;
+    bool shadow_hit = false;
+    if (nee) {
+      int ssteps;
+      TraceOut sres = trace_ray(a.sc, sp[0], sp[1], sp[2], sd[0], sd[1], sd[2], BLOCK_AIR,
+                                a.exact ? a.max_steps : a.shadow_steps, true, !a.exact, shadow_seed, true, &ssteps);
+      shadow_hit = sres.hit;
+      st_shadow += ssteps;
+    }
+    const bool add = nee && !shadow_hit;
+    bool found = false;
+    if (add) {
+      float ss[3];
+      found = sky_color(sd[0], sd[1], sd[2], sky, true, false, false, 0.f, ss);
+      float sf = (scattered && done) ? sfac * smoothstep(F(256.0), F(128.0), sp[1]) : sfac;
+      for (int k = 0; k < 3; ++k) pix[k] = pix[k] + ss[k] * ray[k] * sf;
+    }
+    if (nee && found && !done) {
+      float comp = is_sun ? F(0.05) : F(0.02);
+      for (int k = 0; k < 3; ++k) pix[k] = pix[k] * comp;
+    } else if (nee && !found) {
+      pix[0] = pix[1] = pix[2] = 0.f;
+    }
+
+    // ---- depth and Russian roulette
+    const int depth_eff = depth - ((spec && depth % 2 == 0) ? 1 : 0);
+    if (active) depth = depth_eff + 1;
+    const bool rr_active = active && !done && !scattered && depth_eff > 2;
+    if (rr_active) {
+      float lum = F(0.2126) * pix[0] + F(0.7152) * pix[1] + F(0.0722) * pix[2];
+      float q = fmaxn(1.f - lum, F(0.05));
+      if (r_rr < q) {
+        pix[0] = pix[1] = pix[2] = 0.f;
+        done = true;
+      } else {
+        float one_q = 1.f - q;
+        for (int k = 0; k < 3; ++k) pix[k] = pix[k] / one_q;
+      }
+    }
+    for (int k = 0; k < 3; ++k) pos[k] = new_p[k], dir[k] = new_d[k];
+  }
+
+  long long o = (long long)py * a.width + px;
+  for (int k = 0; k < 3; ++k) {
+    a.color[o * 3 + k] = pix[k] + (fogc[k] - pix[k]) * ff;
+    a.albedo[o * 3 + k] = alb[k];
+    a.normal[o * 3 + k] = nrm[k];
+  }
+  a.depth[o] = depth_out;
+  if (a.steps) {
+    a.steps[o * 4] = st_primary;
+    a.steps[o * 4 + 1] = st_bounce;
+    a.steps[o * 4 + 2] = st_shadow;
+    a.steps[o * 4 + 3] = n_rays;
+  }
+}
+
+extern "C" int mmt_trace(const TraceArgs* args, void* stream) {
+  TraceArgs a = *args;
+  if (a.n > 0) trace_kernel<<<(a.n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mmt_render_sample(const RenderArgs* args, void* stream) {
+  RenderArgs a = *args;
+  if (a.width > 0 && a.height > 0)
+    render_sample_kernel<<<dim3((a.width + 127) / 128, a.height), 128, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,6 @@
 """Launch wrappers of the hand-written CUDA kernels (K1-K9, K2s, K7s and K7's stream
-pre-kernel).
+pre-kernel; the render path's K10 scene fields, K11t trace, K11 render_sample and K12
+accumulate).
 
 Each wrapper checks device, dtype, shape and contiguity of its inputs, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if the C
@@ -11,6 +12,10 @@ plain versions for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from ..world import biomes as bio
@@ -21,7 +26,8 @@ from . import _build
 #: launches per kernel since the last reset (plain integers, read by chip_smoke.py)
 LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0, "placements": 0,
             "compact_placements": 0, "feature_streams": 0, "features": 0, "decorators": 0,
-            "erosion": 0, "layers_slots": 0, "features_slots": 0}
+            "erosion": 0, "layers_slots": 0, "features_slots": 0, "scene_fields": 0,
+            "trace": 0, "render_sample": 0, "accumulate": 0}
 
 N_BIOMES = bio.NUM_BIOMES
 N_MAT = bio.NUM_MATERIALS
@@ -381,3 +387,176 @@ def decorators(blocks, heightfield, biome_weights, cave_starts, cave_ends, cave_
                     _p(blocks), _p(heightfield), _p(biome_weights), _p(cave_starts), _p(cave_ends),
                     _p(cave_bottom_biome), _p(chunk_pos), B, _p(out))
     return out
+
+
+# ---------------------------------------------------------------------------------------
+# the render path (csrc/brickmap.cu, csrc/tracer.cu, csrc/accumulate.cu)
+# ---------------------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _alpha_tables(dev, flags: bytes, frac: bytes) -> torch.Tensor:
+    """[2, 256] u8 on ``dev``: the alpha flag and the transparent-texel fraction by block id."""
+    a = np.zeros((2, 256), np.uint8)
+    a[0, :len(flags)] = np.frombuffer(flags, np.uint8)
+    a[1, :len(frac)] = np.frombuffer(frac, np.uint8)
+    return torch.from_numpy(a).to(dev)
+
+
+def scene_fields(vol):
+    """K10: [Z, X, 384] u8 block ids (Z, X multiples of 4) -> flat i32 fine ++ macro words
+    (one count per call; the entry point makes 56 launches).  The alpha-flag and
+    transparent-fraction tables are read from ``render.brickmap`` at each call, as the
+    plain version reads them, and copied to the card once per content."""
+    from ..render import brickmap
+
+    dev = vol.device
+    Z, X, Y = vol.shape
+    _check(vol, "vol", torch.uint8, (Z, X, Y), dev)
+    if Z % 4 or X % 4 or Y % 4:
+        raise ValueError(f"vol: dims {tuple(vol.shape)} must be multiples of 4")
+    n = Z * X * Y
+    flat = torch.empty((n + n // 64,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((3, n), dtype=torch.int32, device=dev)
+    mask = torch.empty((n,), dtype=torch.uint8, device=dev)
+    cols = torch.empty((2, Z * X), dtype=torch.int32, device=dev)
+    alpha = _alpha_tables(dev, np.asarray(brickmap.ALPHA_TESTED, np.uint8).tobytes(),
+                          np.asarray(brickmap.ALPHA_T_FRAC, np.uint8).tobytes())
+    if n:
+        with torch.cuda.device(dev):
+            _launch("scene_fields", _build.load().mmt_scene_fields, _p(vol), _p(alpha), Z, X, Y, _p(flat),
+                    _p(scratch[0]), _p(scratch[1]), _p(mask), _p(cols[0]), _p(cols[1]))
+    return flat
+
+
+class _SceneArgs(ctypes.Structure):
+    _fields_ = [("flat", ctypes.c_void_p), ("tex_diff", ctypes.c_void_p), ("zdim", ctypes.c_int),
+                ("xdim", ctypes.c_int), ("ydim", ctypes.c_int), ("o0", ctypes.c_float),
+                ("o1", ctypes.c_float), ("o2", ctypes.c_float)]
+
+
+class _TraceArgs(ctypes.Structure):
+    _fields_ = [("sc", _SceneArgs)] + [(k, ctypes.c_void_p) for k in (
+        "ox", "oy", "oz", "dx", "dy", "dz", "medium", "active", "seed")] + [
+        ("n", ctypes.c_int), ("max_steps", ctypes.c_int), ("use_macro", ctypes.c_int)] + [
+        (k, ctypes.c_void_p) for k in ("hit", "t", "block", "nx", "ny", "nz", "steps")]
+
+
+class _RenderArgs(ctypes.Structure):
+    _fields_ = [("sc", _SceneArgs), ("tex_emis", ctypes.c_void_p), ("tex_norm", ctypes.c_void_p),
+                ("params", ctypes.c_void_p)] + [(k, ctypes.c_int) for k in (
+                    "height", "width", "row0", "col0", "full_height", "full_width")] + [
+        ("frame_id", ctypes.c_uint32)] + [(k, ctypes.c_int) for k in (
+            "exact", "max_ray_depth", "max_loop_iters", "max_steps", "bounce_steps", "shadow_steps",
+            "mapped_normals")] + [("fog_scatter", ctypes.c_float)] + [
+        (k, ctypes.c_void_p) for k in ("color", "albedo", "normal", "depth", "steps")]
+
+
+def _scene_args(scene) -> _SceneArgs:
+    from ..render.materials import kernel_tables
+
+    dev = scene.flat.device
+    z, x, y = scene.dims
+    _check(scene.flat, "scene.flat", torch.int32, (z * x * y + z * x * y // 64,), dev)
+    tex = kernel_tables(dev)["tex_diff"]
+    return _SceneArgs(_p(scene.flat), _p(tex), z, x, y, *(float(v) for v in scene.origin))
+
+
+def _launch_struct(name: str, fn, args) -> None:
+    err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: cudaError_t {err}")
+    LAUNCHES[name] += 1
+
+
+def trace(scene, ox, oy, oz, dx, dy, dz, medium, max_steps: int, active=None, want_steps=False,
+          alpha: str = "exact", seed=None, use_macro: bool = True):
+    """K11t: the DDA of N rays (any one shape) through ``scene`` -> TraceResult (and
+    i32 steps with ``want_steps``); ``seed`` (int64 holding u32, or int32 bits) with
+    alpha="stochastic"."""
+    from ..render.tracer import TraceResult
+
+    dev = scene.flat.device
+    shape = ox.shape
+    rays = (ox, oy, oz, dx, dy, dz)
+    for name, v in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
+        _check(v, name, torch.float32, shape, dev)
+    _check(medium, "medium", torch.uint8, shape, dev)
+    if active is not None:
+        _check(active, "active", torch.bool, shape, dev)
+    sd = None
+    if alpha == "stochastic":
+        if seed is None or seed.device != dev or tuple(seed.shape) != tuple(shape):
+            raise ValueError("alpha='stochastic' needs a per-ray seed on the scene's device")
+        sd = (seed.to(torch.int64) & 0xFFFFFFFF).to(torch.int64)
+        sd = torch.where(sd >= 2 ** 31, sd - 2 ** 32, sd).to(torch.int32).contiguous()
+    elif alpha != "exact":
+        raise ValueError(f"alpha must be 'exact' or 'stochastic', not {alpha!r}")
+    n = ox.numel()
+    e = lambda dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    hit, t, block = e(torch.bool), e(torch.float32), e(torch.uint8)
+    nx, ny, nz = e(torch.float32), e(torch.float32), e(torch.float32)
+    steps = e(torch.int32) if want_steps else None
+    ptr = lambda v: None if v is None else _p(v)  # noqa: E731
+    args = _TraceArgs(_scene_args(scene), *(_p(v) for v in rays), _p(medium), ptr(active),
+                      ptr(sd), n, int(max_steps), int(use_macro), _p(hit), _p(t), _p(block), _p(nx),
+                      _p(ny), _p(nz), ptr(steps))
+    if n:
+        with torch.cuda.device(dev):
+            _launch_struct("trace", _build.load().mmt_trace, args)
+    res = TraceResult(hit, t, block, nx, ny, nz)
+    return (res, steps) if want_steps else res
+
+
+def render_sample(scene, cam, params, height: int, width: int, frame_id: int, row0: int,
+                  full_height: int, col0: int, full_width: int, exact: bool, want_steps: bool):
+    """K11: one 1-spp sample of a tile -> (color, albedo, normal [H, W, 3] f32, depth
+    [H, W] f32, steps [H, W, 4] i32 or None)."""
+    from ..render import tracer
+    from ..render.materials import kernel_tables
+
+    dev = scene.flat.device
+    vec = [(cam.position, 3), (cam.forward, 3), (cam.right, 3), (cam.up, 3), (cam.pixel_length, 2),
+           (params.sun_dir, 3), (params.moon_dir, 3), (params.stars_rot, 9), (params.time, 1)]
+    for t, n in vec:
+        if t.device != dev or t.dtype != torch.float32 or t.numel() != n:
+            raise ValueError(f"camera / sky parameter: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {n} f32 on {dev}")
+    pvec = torch.cat([t.reshape(-1) for t, _ in vec]).contiguous()
+    if not (0 <= row0 and row0 + height <= full_height and 0 <= col0 and col0 + width <= full_width):
+        raise ValueError("the tile must lie inside the frame")
+    tabs = kernel_tables(dev)
+    e = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    color, albedo, normal, depth = e(height, width, 3), e(height, width, 3), e(height, width, 3), e(height, width)
+    steps = e(height, width, 4, dt=torch.int32) if want_steps else None
+    args = _RenderArgs(_scene_args(scene), _p(tabs["tex_emis"]), _p(tabs["tex_norm"]), _p(pvec),
+                       height, width, row0, col0, full_height, full_width,
+                       int(frame_id) & 0xFFFFFFFF, int(exact), tracer.MAX_RAY_DEPTH,
+                       tracer.MAX_LOOP_ITERS, tracer.MAX_TRACE_STEPS, tracer.BOUNCE_TRACE_STEPS,
+                       tracer.SHADOW_TRACE_STEPS, int(tracer.MAPPED_NORMALS),
+                       float(tracer.FOG_SCATTER), _p(color), _p(albedo), _p(normal), _p(depth),
+                       None if steps is None else _p(steps))
+    if height and width:
+        with torch.cuda.device(dev):
+            _launch_struct("render_sample", _build.load().mmt_render_sample, args)
+    return color, albedo, normal, depth, steps
+
+
+def accumulate(c_old, a_old, n_old, color, albedo, normal, frame_id: int):
+    """K12: the running average of three [H, W, 3] f32 buffers -> three new buffers."""
+    from ..render.tracer import accumulate_weights
+
+    dev = color.device
+    shape = tuple(color.shape)
+    if len(shape) != 3 or shape[2] != 3:
+        raise ValueError(f"color: shape {shape}, expected [H, W, 3]")
+    for name, t in (("fbs.color", c_old), ("fbs.albedo", a_old), ("fbs.normal", n_old),
+                    ("color", color), ("albedo", albedo), ("normal", normal)):
+        _check(t, name, torch.float32, shape, dev)
+    fid, mult = accumulate_weights(frame_id)
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3)]
+    if color.numel():
+        with torch.cuda.device(dev):
+            _launch("accumulate", _build.load().mmt_accumulate, _p(c_old), _p(a_old), _p(n_old),
+                    _p(color), _p(albedo), _p(normal), color.numel(), fid, mult, *(_p(o) for o in outs))
+    return outs

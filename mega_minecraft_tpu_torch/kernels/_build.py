@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from ..world import biomes as bio
-from ..world.blocks import Block
+from ..world.blocks import RENDER_SOLID, Block
 
 from .. import tables
 
@@ -72,6 +72,14 @@ SIGNATURES = {
     "mmt_features_slots": [_P] * 18 + [_I, _I, _P, _P],
     # blocks, hf, w, starts, ends, bottom_biome, pos, B, out blocks, stream
     "mmt_decorators": [_P] * 7 + [_I, _P, _P],
+    # vol, alpha tables, Z, X, Y, out flat, scratch a, b, mask, top, sky, stream
+    "mmt_scene_fields": [_P, _P, _I, _I, _I] + [_P] * 7,
+    # &TraceArgs, stream
+    "mmt_trace": [_P, _P],
+    # &RenderArgs, stream
+    "mmt_render_sample": [_P, _P],
+    # old colour, albedo, normal, new colour, albedo, normal, count, fid, mult, out x3, stream
+    "mmt_accumulate": [_P] * 6 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [_P] * 4,
 }
 
 
@@ -105,6 +113,8 @@ def _c_array(name: str, a, ctype: str | None = None) -> str:
         ctype = "float" if a.dtype.kind == "f" else "int"
     if ctype == "float":
         vals = [repr(float(np.float32(v))) + "f" for v in a.reshape(-1)]
+    elif ctype == "uint32_t":
+        vals = [f"{int(v)}u" for v in a.reshape(-1)]
     else:
         vals = [str(int(v)) for v in a.reshape(-1)]
     dims = "".join(f"[{n}]" for n in a.shape)
@@ -161,6 +171,28 @@ def feature_tables_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def render_tables_header() -> str:
+    """C tables of the render path (K10-K11): the scene encoding's constants, the solid
+    table, the packed block properties and the material-class scalars, made from the
+    numpy modules the plain versions read.  The alpha-flag and transparent-fraction
+    tables and the texel tables go to the kernels as device tensors."""
+    from ..render import brickmap, materials
+    from ..world.blocks import X_SHAPED_HI, X_SHAPED_LO
+
+    lines = ["// generated by mega_minecraft_tpu_torch/kernels/_build.py; do not edit", "#pragma once"]
+    defines = {"EMPTY_BASE": brickmap.EMPTY_BASE, "DIST_CAP": brickmap.DIST_CAP,
+               "SKY_R": brickmap.SKY_R, "MACRO_SCALE": brickmap.MACRO_SCALE,
+               "X_SHAPED_LO": X_SHAPED_LO, "X_SHAPED_HI": X_SHAPED_HI}
+    lines += [f"#define {k} {int(v)}" for k, v in defines.items()]
+    lines.append(_c_array("RENDER_SOLID_TAB", np.asarray(RENDER_SOLID, np.uint8), "uint8_t"))
+    lines.append(_c_array("BLOCK_PROPS_TAB", materials.BLOCK_PROPS, "uint32_t"))
+    lines.append(_c_array("MAT_SPECULAR_TAB", np.asarray(materials.MAT_SPECULAR, np.uint8), "uint8_t"))
+    lines.append(_c_array("MAT_WAVY_TAB", np.asarray(materials.MAT_WAVY, np.uint8), "uint8_t"))
+    lines.append(_c_array("MAT_ROUGHNESS_TAB", materials.MAT_ROUGHNESS))
+    lines.append(_c_array("MAT_IOR_TAB", materials.MAT_IOR))
+    return "\n".join(lines) + "\n"
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
@@ -170,6 +202,7 @@ def source_hash() -> str:
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(ids_header().encode())
     h.update(feature_tables_header().encode())
+    h.update(render_tables_header().encode())
     for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -199,6 +232,7 @@ def build(verbose: bool = False) -> tuple[Path, float, bool]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     (BUILD_DIR / "mmt_ids.h").write_text(ids_header())
     (BUILD_DIR / "mmt_feature_tables.h").write_text(feature_tables_header())
+    (BUILD_DIR / "mmt_render_tables.h").write_text(render_tables_header())
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         # one nvcc per source, all started together

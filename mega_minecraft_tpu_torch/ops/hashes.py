@@ -1,6 +1,6 @@
 """Plain PyTorch version of the integer hash, minstd LCG and sin-dot float hashes.
 
-Port of ``mega_minecraft_tpu/ops/hashes.py:40-470`` with ONE arithmetic mode, the
+Port of ``mega_minecraft_tpu/ops/hashes.py:40-494`` with ONE arithmetic mode, the
 reference's exact mode: ``_sinhash`` always uses the correctly rounded ``_sin_cr``,
 and division / sqrt / sums are plain IEEE f32 operations evaluated left to right.
 The CUDA twin of every function here is in ``csrc/mmt_math.cuh``.
@@ -259,3 +259,34 @@ def rand3_from3(vx, vy, vz):
         _sinhash(vx * 654.37 + vy * 560.45 + vz * 747.42),
         _sinhash(vx * 640.88 + vy * 151.81 + vz * 674.81),
     )
+
+
+# ---------------------------------------------------------------------------
+# the renderer's per-pixel RNG (hashes.py:473-494; the reference's
+# random_number_generators.h): TEA-seeded LCG with 24-bit uniforms
+# ---------------------------------------------------------------------------
+
+
+def tea(val0, val1, rounds: int = 16) -> torch.Tensor:
+    """TEA hash of two u32 words -> u32 (held in int64)."""
+    v0, v1 = u32(val0), u32(val1)
+    s0 = 0
+    for _ in range(rounds):
+        s0 = (s0 + 0x9E3779B9) & M32
+        v0 = (v0 + ((((v1 << 4) + 0xA341316C) & M32) ^ ((v1 + s0) & M32)
+                    ^ (((v1 >> 5) + 0xC8013EA4) & M32))) & M32
+        v1 = (v1 + ((((v0 << 4) + 0xAD90777D) & M32) ^ ((v0 + s0) & M32)
+                    ^ (((v0 >> 5) + 0x7E95761E) & M32))) & M32
+    return v0
+
+
+def lcg_render(state) -> torch.Tensor:
+    """The renderer's LCG step: state' = 1664525 * state + 1013904223 (mod 2^32)."""
+    return (u32(state) * 1664525 + 1013904223) & M32
+
+
+def rnd(state):
+    """Uniform in [0, 1) from the low 24 bits of the next state -> (value, state)."""
+    state = lcg_render(state)
+    v = (state & 0x00FFFFFF).to(F32) / torch.full_like(state, float(0x01000000), dtype=F32)
+    return v, state

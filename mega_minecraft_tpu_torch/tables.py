@@ -145,3 +145,29 @@ def from_jax_outputs(np_dict, device) -> dict:
             raise KeyError(f"no port dtype for stage output {k!r}")
         out[k] = torch.tensor(np.asarray(v), device=torch.device(device)).to(_STAGE_DTYPES[k])
     return out
+
+
+def scene_from_numpy(flat, origin, dims, device):
+    """A render Scene from host data (a JAX ``Scene``'s ``flat`` / ``origin`` / ``dims``)."""
+    from .render.brickmap import Scene
+
+    flat = torch.as_tensor(np.array(flat, dtype=np.int32), device=torch.device(device))
+    return Scene(flat, [int(v) for v in np.asarray(origin).reshape(-1)], dims)
+
+
+def _f32_tensors(arrays, device):
+    return [torch.as_tensor(np.array(a, np.float32), device=torch.device(device)) for a in arrays]
+
+
+def camera_from_numpy(cam, device):
+    """Port CameraParams from a JAX ``CameraParams`` (or any 5 arrays in its order)."""
+    from .render.camera import CameraParams
+
+    return CameraParams(*_f32_tensors(cam, device))
+
+
+def sky_from_numpy(params, device):
+    """Port SkyParams from a JAX ``SkyParams`` (or any 4 arrays in its order)."""
+    from .render.sky import SkyParams
+
+    return SkyParams(*_f32_tensors(params, device))

@@ -4,7 +4,15 @@ CPU, K1-K8 for the featured 5x5 bench area against the plain chain run on the ca
 on the two ``golden_erosion.npz`` grids against the plain erosion on the CPU (bit for
 bit, with the same sweep counts), and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
 K7's pre-kernel, K4, K7s, K8) whose filled chunks must equal the featured area path
-over all their sources.
+over all their sources.  The render path: K10 (scene fields, bit for bit), K11t (the
+DDA of 1080p-camera primary rays: hit, block, normal and t equal), K11 (a 64x64 tile of
+the 1080p frame, day, night and exact mode: >= 99.9% of pixels within 1e-5 in colour,
+albedo, normal and depth, mean |diff| <= 1e-4, steps equal) and K12 (bit for bit) against
+their plain versions on the card, on a scene built from a featured 2x2 area; the same
+under ``cutout_atlas``, a hand-set atlas that reaches the alpha-cutout code (K10's flag
+bits, K11t's exact park-and-resolve and stochastic pass-through on rays aimed at flagged
+voxels, K11 in both trace modes with a camera aimed at one); and one launch each of K11
+and K12 per ``render_accumulate``.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and skips
 without a card.  The file imports no JAX, so on a GPU machine without JAX it runs as
@@ -20,6 +28,8 @@ placement lists and the blocks are equal.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 
 import numpy as np
@@ -27,12 +37,81 @@ import pytest
 import torch
 
 from mega_minecraft_tpu_torch import kernels
+from mega_minecraft_tpu_torch.render import brickmap, camera, materials, sky, tracer
 from mega_minecraft_tpu_torch.terrain import (caves, decorators, erosion, feature_placement, features,
                                               fill, heightfield, layers, pipeline, scheduler)
+from mega_minecraft_tpu_torch.world.blocks import NUM_BLOCKS, X_SHAPED_HI, X_SHAPED_LO, Block
 
 ORIGIN_CHUNK = (592 // 16, -368 // 16)
+#: blocks whose tiles ``cutout_atlas`` makes half transparent: leaves, the X-shaped
+#: flora, and the stone, grass-block and smooth-sandstone surfaces most rays reach
+CUTOUT_BLOCKS = sorted({int(b) for b in Block if "LEAVES" in b.name} | set(range(X_SHAPED_LO, X_SHAPED_HI))
+                       | {int(Block.STONE), int(Block.GRASS_BLOCK), int(Block.SMOOTH_SANDSTONE)})
 GOLDEN_EROSION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                               "golden_erosion.npz")
+
+
+@contextlib.contextmanager
+def cutout_atlas(blocks=CUTOUT_BLOCKS):
+    """Swap in a diffuse table whose tiles of ``blocks`` are half transparent (a checker
+    of 4x4-texel squares on every face and variant), with the alpha-flag and fraction
+    tables made from it, for the plain versions and the kernels alike.  The procedural
+    atlas has no transparent texel, so this is how the alpha-cutout code runs.  Yields
+    (ALPHA_TESTED, ALPHA_T_FRAC); everything is restored on exit."""
+    td = materials.TEX_DIFF_PACKED.copy().reshape(NUM_BLOCKS, 3, 8, 16, 16)
+    v, u = np.indices((16, 16))
+    hole = (u // 4 + v // 4) % 2 == 1
+    for b in blocks:
+        td[b][..., hole] &= ~np.uint32(1 << 24)
+    td = td.reshape(-1)
+    flags, frac = materials.alpha_tables(td)
+    saved = materials.TEX_DIFF_PACKED, brickmap.ALPHA_TESTED, brickmap.ALPHA_T_FRAC
+    try:
+        materials.TEX_DIFF_PACKED, brickmap.ALPHA_TESTED, brickmap.ALPHA_T_FRAC = td, flags, frac
+        materials.plain_tables.cache_clear()
+        materials.kernel_tables.cache_clear()
+        yield flags, frac
+    finally:
+        materials.TEX_DIFF_PACKED, brickmap.ALPHA_TESTED, brickmap.ALPHA_T_FRAC = saved
+        materials.plain_tables.cache_clear()
+        materials.kernel_tables.cache_clear()
+
+
+def flagged_surface_voxels(scene, n: int, seed: int = 0) -> np.ndarray:
+    """World-space centres (x, y, z) [n, 3] f32 of n alpha-flagged voxels of ``scene``
+    that top their columns (open to the sky), drawn with ``seed``: targets for rays and
+    cameras that must meet cutouts."""
+    field = scene.field
+    solid = (field & 0xFF) < brickmap.EMPTY_BASE
+    yidx = torch.arange(field.shape[2], device=field.device)
+    top = torch.where(solid, yidx, torch.full_like(yidx, -1)).amax(-1)  # [Z, X]
+    word = torch.gather(field, 2, top.clamp(min=0)[..., None])[..., 0]
+    z, x = torch.nonzero((top >= 0) & (word < 0), as_tuple=True)
+    idx = torch.stack([z, x, top[z, x]], -1).cpu().numpy()  # (z, x, y)
+    assert len(idx) > 0, "no flagged voxel tops its column"
+    pick = idx[np.random.default_rng(seed).integers(0, len(idx), n)]
+    ox, oy, oz = scene.origin
+    return (np.stack([pick[:, 1] + ox, pick[:, 2] + oy, pick[:, 0] + oz], -1) + 0.5).astype(np.float32)
+
+
+def rays_at(targets: np.ndarray, device, seed: int = 1):
+    """(ox, oy, oz, dx, dy, dz) [n] f32 on ``device``: one ray per target, from a point
+    2-24 blocks above it and up to 16 aside, through the target's voxel."""
+    rng = np.random.default_rng(seed)
+    n = len(targets)
+    aim = targets + rng.uniform(-0.45, 0.45, (n, 3))
+    o = aim + np.stack([rng.uniform(-16, 16, n), rng.uniform(2, 24, n), rng.uniform(-16, 16, n)], -1)
+    d = aim - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return tuple(torch.tensor(v[:, k], dtype=torch.float32, device=device) for v in (o, d) for k in range(3))
+
+
+def aimed_player(targets: np.ndarray) -> camera.Player:
+    """A camera 12 blocks above and 4 before (along -z) the highest of ``targets``,
+    looking steeply down at it, so that little can stand between them."""
+    target = targets[int(np.argmax(targets[:, 1]))]
+    return camera.Player(pos=(target + np.array([0.0, 12.0, -4.0], np.float32)).astype(np.float32),
+                         theta=0.0, phi=-math.atan2(12.0, 4.0))
 
 
 def _pos_halo(device="cpu"):
@@ -79,7 +158,9 @@ def test_featured_5x5_matches_plain_chain_on_gpu(cuda_device):
     kernels.reset_launch_counts()
     out = pipeline.generate_area_fused(pos, 5, 5, features=True)
     torch.cuda.synchronize()
-    unused = ("erosion", "layers_slots", "features_slots")  # erosion and the scheduler's kernels
+    # erosion, the scheduler's kernels and the render path's
+    unused = ("erosion", "layers_slots", "features_slots", "scene_fields", "trace", "render_sample",
+              "accumulate")
     assert kernels.launch_counts() == {k: int(k not in unused) for k in kernels.LAUNCHES}
 
     hf, w = heightfield.generate_heightfield_plain(pos)
@@ -136,3 +217,135 @@ def test_radius8_drain_matches_area_path_on_gpu(cuda_device):
             assert s.state_at((dx, dz)) >= int(scheduler.ChunkState.FILLED)
             got = s.t.d_blocks[s.slot_for((dx, dz))]
             assert torch.equal(got, blocks[7 + dz, 7 + dx]), (dx, dz)
+
+
+@pytest.fixture(scope="module")
+def render_scene(cuda_device):
+    """A featured 2x2 area at chunk (-1, -1) as a scene, and the 1080p bench camera."""
+    out = pipeline.generate_area_fused(pipeline.chunk_positions(-2, -2, 4, 4, device=cuda_device),
+                                       2, 2, features=True)
+    blocks = out["blocks"].reshape(2, 2, 16, 16, 384)
+    hmax = float(out["heightfield"].max())
+    player = camera.Player(pos=np.array([0.0, hmax + 16.0, -30.0], np.float32), theta=0.05, phi=-0.22)
+    return brickmap.build_scene(blocks, -1, -1), player, blocks
+
+
+def _frac_close(got, want, tol=1e-5):
+    d = (got.double() - want.double()).abs()
+    if d.dim() == 3:
+        d = d.amax(-1)
+    return float((d <= tol).double().mean()), float(d.mean())
+
+
+@pytest.mark.cuda
+def test_scene_fields_kernel_matches_plain_on_gpu(render_scene):
+    scene, _, blocks = render_scene
+    want = brickmap.build_fields_plain(brickmap.scene_volume(blocks))
+    assert torch.equal(scene.flat, want)
+
+
+@pytest.mark.cuda
+def test_trace_kernel_matches_plain_on_gpu(cuda_device, render_scene):
+    scene, player, _ = render_scene
+    cam = player.camera_params(1920, 1080, device=cuda_device)
+    rays, _ = tracer.primary_rays(cam, 1080, 1920, 3)
+    med = torch.zeros((1080, 1920), dtype=torch.uint8, device=cuda_device)
+    got, gs = tracer.trace(scene, *rays, med, want_steps=True)
+    want, ws = tracer.trace_plain(scene, *rays, med, want_steps=True)
+    for k in got._fields:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert torch.equal(gs, ws) and bool(want.hit.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sun_time,exact", [(1.0, False), (4.0, False), (1.0, True)],
+                         ids=["day", "night", "exact"])
+def test_render_sample_kernel_matches_plain_on_gpu(cuda_device, render_scene, sun_time, exact):
+    scene, player, _ = render_scene
+    cam = player.camera_params(1920, 1080, device=cuda_device)
+    params = sky.sky_params(sun_time, 0.0, device=cuda_device)
+    tile = dict(row0=500, full_height=1080, col0=900, full_width=1920, exact=exact)
+    kernels.reset_launch_counts()
+    got = tracer.render_sample(scene, cam, params, 64, 64, 3, want_depth=True, want_steps=True, **tile)
+    assert kernels.launch_counts()["render_sample"] == 1
+    want = tracer.render_sample_plain(scene, cam, params, 64, 64, 3, **tile)
+    for name, g, w in zip(("color", "albedo", "normal", "depth"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        frac, mean = _frac_close(g, w)
+        assert frac >= 0.999 and mean <= 1e-4, (name, frac, mean)
+    assert torch.equal(got[4], want[4])
+
+
+@pytest.mark.cuda
+def test_render_sample_kernel_mapped_normals_on_gpu(cuda_device, render_scene, monkeypatch):
+    """The normal-map switch (config.render.mapped_normals, off by default) in both versions."""
+    scene, player, _ = render_scene
+    monkeypatch.setattr(tracer, "MAPPED_NORMALS", True)
+    cam = player.camera_params(1920, 1080, device=cuda_device)
+    params = sky.sky_params(1.0, 0.0, device=cuda_device)
+    tile = dict(row0=500, full_height=1080, col0=900, full_width=1920, exact=False)
+    got = tracer.render_sample(scene, cam, params, 64, 64, 3, want_depth=True, want_steps=True, **tile)
+    want = tracer.render_sample_plain(scene, cam, params, 64, 64, 3, **tile)
+    for name, g, w in zip(("color", "albedo", "normal", "depth"), got, want):
+        frac, mean = _frac_close(g, w)
+        assert frac >= 0.999 and mean <= 1e-4, (name, frac, mean)
+    assert torch.equal(got[4], want[4])
+
+
+@pytest.mark.cuda
+def test_alpha_cutout_kernels_match_plain_on_gpu(cuda_device, render_scene):
+    """The alpha-cutout code under ``cutout_atlas``: K10's flag and fraction bits, K11t's
+    exact park-and-resolve and stochastic pass-through on 65,536 rays aimed at flagged
+    voxels, and K11 in both trace modes on a 320x180 frame of a camera aimed at one, each
+    against its plain version."""
+    scene0, _, blocks = render_scene
+    with cutout_atlas():
+        scene = brickmap.build_scene(blocks, -1, -1)
+        assert torch.equal(scene.flat, brickmap.build_fields_plain(brickmap.scene_volume(blocks)))
+        targets = flagged_surface_voxels(scene, 65536)
+        rays = rays_at(targets, cuda_device)
+        seed = torch.arange(65536, dtype=torch.int64, device=cuda_device) * 2654435761 % 2 ** 32
+        med = torch.zeros(65536, dtype=torch.uint8, device=cuda_device)
+        for alpha in ("exact", "stochastic"):
+            sd = seed if alpha == "stochastic" else None
+            got, gs = tracer.trace(scene, *rays, med, want_steps=True, alpha=alpha, seed=sd)
+            want, ws = tracer.trace_plain(scene, *rays, med, want_steps=True, alpha=alpha, seed=sd)
+            for k in got._fields:
+                assert torch.equal(getattr(got, k), getattr(want, k)), (alpha, k)
+            assert torch.equal(gs, ws), alpha
+            # the cutouts change what the rays see
+            moved = int((got.t != tracer.trace(scene0, *rays, med).t).sum())
+            assert moved > 10000, (alpha, moved)
+        cam = aimed_player(targets).camera_params(320, 180, device=cuda_device)
+        params = sky.sky_params(1.0, 0.0, device=cuda_device)
+        for exact in (True, False):
+            got = tracer.render_sample(scene, cam, params, 180, 320, 3, want_depth=True, want_steps=True,
+                                       exact=exact)
+            want = tracer.render_sample_plain(scene, cam, params, 180, 320, 3, exact=exact)
+            for name, g, w in zip(("color", "albedo", "normal", "depth"), got, want):
+                assert bool(torch.isfinite(g).all()), (exact, name)
+                frac, mean = _frac_close(g, w)
+                assert frac >= 0.999 and mean <= 1e-4, (exact, name, frac, mean)
+            assert torch.equal(got[4], want[4]), exact
+            base = tracer.render_sample(scene0, cam, params, 180, 320, 3, want_depth=True, exact=exact)
+            assert float((got[3] != base[3]).double().mean()) > 0.01, exact  # cutouts in view
+
+
+@pytest.mark.cuda
+def test_accumulate_kernel_and_render_accumulate_on_gpu(cuda_device, render_scene):
+    scene, player, _ = render_scene
+    g = torch.Generator(device="cpu").manual_seed(5)
+    bufs = [torch.rand((48, 80, 3), generator=g).to(cuda_device) for _ in range(6)]
+    got = tracer.accumulate(tracer.FrameBuffers(*bufs[:3]), *bufs[3:], 7)
+    want = tracer.accumulate_plain(tracer.FrameBuffers(*bufs[:3]), *bufs[3:], 7)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    cam = player.camera_params(80, 48, device=cuda_device)
+    params = sky.sky_params(1.0, 0.0, device=cuda_device)
+    fbs = tracer.init_framebuffers(48, 80, device=cuda_device)
+    kernels.reset_launch_counts()
+    fbs = tracer.render_accumulate(fbs, scene, cam, params, 48, 80, 0)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["render_sample"] == 1 and counts["accumulate"] == 1
+    assert sum(counts.values()) == 2

@@ -266,12 +266,26 @@ def test_build_flags_and_hash():
     assert "fast_math" not in flags
     assert _build.source_hash() == _build.source_hash()
     assert sorted(p.name for p in _build._sources()) == [
-        "caves.cu", "decorators.cu", "erosion.cu", "features.cu", "fill.cu", "heightfield.cu",
-        "layers.cu", "placements.cu"]
+        "accumulate.cu", "brickmap.cu", "caves.cu", "decorators.cu", "erosion.cu", "features.cu",
+        "fill.cu", "heightfield.cu", "layers.cu", "placements.cu", "tracer.cu"]
     # every C entry point the wrappers call is declared in one of the sources
     text = "".join(p.read_text() for p in _build._sources())
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text, name
+
+
+def test_render_tables_header_matches_the_numpy_tables():
+    from mega_minecraft_tpu_torch.render import materials
+
+    header = _build.render_tables_header()
+    for name in ("EMPTY_BASE 140", "DIST_CAP 63", "SKY_R 8", "MACRO_SCALE 4"):
+        assert f"#define {name}\n" in header
+    props = ", ".join(f"{int(v)}u" for v in materials.BLOCK_PROPS)
+    assert f"uint32_t BLOCK_PROPS_TAB[140] = {{{props}}};" in header
+    ior = ", ".join(repr(float(v)) + "f" for v in materials.MAT_IOR)
+    assert f"float MAT_IOR_TAB[6] = {{{ior}}};" in header
+    for name in ("RENDER_SOLID_TAB[140]", "MAT_SPECULAR_TAB[6]", "MAT_WAVY_TAB[6]", "MAT_ROUGHNESS_TAB[6]"):
+        assert f" {name} = {{" in header, name
 
 
 def test_feature_tables_header_covers_the_feature_half():

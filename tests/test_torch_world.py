@@ -1,10 +1,11 @@
 """The port's own data modules (``mega_minecraft_tpu_torch/world``) vs the JAX package's.
 
 The port imports nothing of ``mega_minecraft_tpu``; it keeps copies of the numpy-only
-``world/{blocks,biomes,features_data}.py``.  These tests hold every public table, enum
-member and scalar constant of the copies equal to the originals (tolerance: none, the
-values are equal), and check in a fresh interpreter that importing the whole port pulls
-in neither ``jax`` nor any module of the JAX package.
+``world/{blocks,biomes,features_data,block_uvs}.py`` and of the numpy tables of
+``render/materials.py``.  These tests hold every public table, enum member and scalar
+constant of the copies equal to the originals (tolerance: none, the values are equal),
+and check in a fresh interpreter that importing the whole port pulls in neither ``jax``
+nor any module of the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import pytest
 
 import mega_minecraft_tpu_torch
 
-MODULES = ["blocks", "biomes", "features_data"]
+MODULES = ["blocks", "biomes", "features_data", "block_uvs"]
 
 
 def _public(mod):
@@ -54,7 +55,19 @@ def test_world_copy_equals_reference(name):
     ref = _public(importlib.import_module(f"mega_minecraft_tpu.world.{name}"))
     got = _public(importlib.import_module(f"mega_minecraft_tpu_torch.world.{name}"))
     assert sorted(got) == sorted(ref)
-    assert len(ref) > 5
+    assert len(ref) > 5 or name == "block_uvs"
+    differing = [k for k in ref if not _same(ref[k], got[k])]
+    assert not differing, differing
+
+
+def test_material_tables_equal_reference():
+    """The render material tables (palette, packed props, the procedural atlas and the
+    face / variant texel tables, alpha flags) equal the JAX package's."""
+    ref = _public(importlib.import_module("mega_minecraft_tpu.render.materials"))
+    got = _public(importlib.import_module("mega_minecraft_tpu_torch.render.materials"))
+    assert sorted(got) == sorted(ref)
+    assert {"BLOCK_PROPS", "TEX_DIFF_PACKED", "TEX_EMIS_PACKED", "TEX_NORM_PACKED",
+            "ALPHA_TESTED", "ALPHA_T_FRAC", "MAT_IOR"} <= set(ref)
     differing = [k for k in ref if not _same(ref[k], got[k])]
     assert not differing, differing
 
@@ -63,6 +76,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(mega_minecraft_tpu_torch.__path__,
                                                    "mega_minecraft_tpu_torch.")]
     assert "mega_minecraft_tpu_torch.terrain.features_sdf" in names
+    assert "mega_minecraft_tpu_torch.render.tracer" in names
     code = (
         "import importlib, sys\n"
         f"for n in {['mega_minecraft_tpu_torch'] + names!r}:\n"
