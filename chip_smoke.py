@@ -57,14 +57,32 @@ Phases, each of which raises (non-zero exit) on failure:
      bit for bit, and one K11 and one K12 launch per ``render_accumulate``;
  12. ms/frame and Mpaths/s of eight accumulated frames at 1080p and 540p on both scenes,
      K10 per scene, every render kernel against its plain version, and the step counts
-     per pixel (primary, bounce, shadow rays; mean, p99, max) from K11's counts output.
+     per pixel (primary, bounce, shadow rays; mean, p99, max) from K11's counts output;
+ 13. the engine's frame kernels against their plain versions, bit for bit: K10u
+     (``brickmap.update_chunks``) on the featured 33x33 scene (a 3x3 bucket rewritten with
+     one chunk air, a bucket removed, the corner bucket with its window clamped), K13 and
+     K13s after a moved and a static camera at 960x540, K14 with and without nsamp, K15 to
+     1920x1080 (also within 1e-6 of ``F.interpolate``), K16 at 1920x1080; each timed
+     (plain, kernel, kernel, plain) with its bound, K15's library call timed;
+ 14. the reference fly-through (bench_flythrough.py:27-36: 1920x1080 upscaled from
+     960x540, view_chunks 33, the radius-40 spiral with erosion, denoise, reprojection)
+     through ``app.engine.Engine``: the drain, then with the counts reset around them the
+     upload (121 K10u buckets), 30 ticks 2 blocks forward (one K11 and one K13 / K13s
+     each) and one present (one K14, K15, K16), timed; the presented [1080, 1920, 3] u8
+     frame equal to the plain denoise -> upscale -> present chain on the same buffers; the
+     same run on a second engine under torch.profiler for the idle share and the device
+     time by stage.
 On the card, kernel and plain version run the same libm, so integer outputs must be
-equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5.
+equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5 (the frame
+path's kernels: equal).
 The second-to-last line is the kernels' JSON record (launch counts of the featured 5x5
-run for the area kernels, of the reference drain for K9, K2s and K7s, and of the render
-run for K10-K12; max |diff| over all checks; times and bounds at the 5x5 shapes, of K9 on
-the eroded area's grid, of K2s and K7s at the reference drain's largest batches, and of
-K10-K12 on the 10x10 bench scene at 1080p), the last the device record.
+run for the area kernels, of the reference drain for K9, K2s and K7s, of the render run
+for K10-K12 and of the fly-through's upload, ticks and present for K10u and K13-K16; max
+|diff| over all checks; times and bounds at the 5x5 shapes, of K9 on the eroded area's
+grid, of K2s and K7s at the reference drain's largest batches, of K10-K12 on the 10x10
+bench scene at 1080p, of K10u per 33x33 bucket and of K13-K16 at the fly-through's
+shapes; library times: K2s's gather as one indexing call, K15's ``F.interpolate``), the
+last the device record.
 ``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas -v).
 
 A kernel's bound is the least time the card could take for the same work: the larger of
@@ -79,7 +97,12 @@ written, and the doubling rounds' operations per voxel (the function is that tra
 K11t and K11 the rays' or frame's inputs and outputs plus the field words their DDA steps
 read (at most the field), and the steps this frame's rays took (K11's counts output) times
 the cost of a step, plus a bounce's shading per radiance ray and the cloud march per
-first-hit ray that looks up; K12 three buffers read twice and written once.
+first-hit ray that looks up; K12 three buffers read twice and written once; K10u the
+window's words read and written, the region's blocks, the whole fine field read and the
+macro words written by the macro pass, and K10's operations per window voxel and macro
+cell; K13 / K13s 32 floats a pixel (history and sample read, new history written); K14
+its colour read and written per iteration and the guides once, and ~45 operations per tap
+(25 taps, 4 iterations); K15 and K16 their input and output once.
 """
 
 from __future__ import annotations
@@ -131,7 +154,21 @@ KERNELS = {  # name -> (source, the JAX program it replaces)
                       "mega_minecraft_tpu/render/tracer.py:1259"),
     "accumulate": ("mega_minecraft_tpu_torch/csrc/accumulate.cu",
                    "mega_minecraft_tpu/render/tracer.py:1584"),
+    "update_chunks": ("mega_minecraft_tpu_torch/csrc/brickmap.cu",
+                      "mega_minecraft_tpu/render/brickmap.py:325"),
+    "reproject": ("mega_minecraft_tpu_torch/csrc/reproject.cu",
+                  "mega_minecraft_tpu/render/reproject.py:47"),
+    "static_blend": ("mega_minecraft_tpu_torch/csrc/reproject.cu",
+                     "mega_minecraft_tpu/render/reproject.py:158"),
+    "atrous_denoise": ("mega_minecraft_tpu_torch/csrc/denoise.cu",
+                       "mega_minecraft_tpu/render/denoise.py:32"),
+    "upscale2x": ("mega_minecraft_tpu_torch/csrc/present.cu",
+                  "mega_minecraft_tpu/render/denoise.py:112"),
+    "present": ("mega_minecraft_tpu_torch/csrc/present.cu",
+                "mega_minecraft_tpu/render/tonemap.py:22"),
 }
+#: the engine's frame path (Engine.tick -> Engine.present)
+FRAME_KERNELS = ("update_chunks", "reproject", "static_blend", "atrous_denoise", "upscale2x", "present")
 #: the render path's kernels (build_scene, trace, render_sample, accumulate)
 RENDER_KERNELS = ("scene_fields", "trace", "render_sample", "accumulate")
 #: the area path's kernels (generate_area_fused(..., features=True)); the featureless slice
@@ -561,6 +598,7 @@ def time_stream_kernels(dev, t, log, err, times, bounds, smi):
           "the indexing gather differs from gather_heightfields_batch")
     gather_ms = cuda_ms(lambda: hf_flat[flat], 50)
     times["layers_slots"] = (ms, plain_ms)
+    times[("library", "layers_slots")] = gather_ms
     bounds["layers_slots"] = bound(B * (18 * 18 * 4 + 24 * 256 * 4 + 8 + 40) + B * 20 * 256 * 4,
                                    B * 256 * (960 + 11 * fbm2_ops(5) + 400))
     print(f"  K2s on {smi}: {ms:.4f} ms for {B} chunks, plain {plain_ms:.3f} ms, bound "
@@ -1129,6 +1167,252 @@ def render_phases(dev, stamp, err, smi):
     return launches, times, bounds
 
 
+# -- the engine's frame path (phases 13-14) -------------------------------------------------
+#: f32 operations of one à-trous tap (three squared distances, the exponent's two divisions
+#: and subtractions, expf ~10, the weighted sums)
+ATROUS_TAP_OPS = 45
+FLY_FRAMES = 30  # ticks of the timed fly-through, as bench_flythrough.py times them
+#: device kernels of the fly-through by stage, for the profiler's split
+STAGE_OF_KERNEL = (("window_kernel", "K10u"), ("macro_solid_kernel", "K10u"), ("top_kernel", "K10u"),
+                   ("sky_kernel", "K10u"), ("init_kernel", "K10u"), ("shift_min_kernel", "K10u"),
+                   ("round_update_kernel", "K10u"), ("encode_kernel", "K10u"),
+                   ("render_sample_kernel", "K11"), ("reproject_kernel", "K13"),
+                   ("static_blend_kernel", "K13"), ("atrous_kernel", "present"),
+                   ("upscale2x_kernel", "present"), ("present_kernel", "present"))
+
+
+def k10u_counts(dims, gz, gx, n_w):
+    """(bytes, operations) of one K10u: the window's words read and written, the region's
+    blocks read, the whole fine field read and the macro words written by the macro pass;
+    K10's operations per window voxel and per macro cell."""
+    z, x, y = dims
+    n_fine, n_m = z * x * y, z * x * y // 64
+    return 8 * n_w + gz * gx * 16 * 16 * y + 4 * n_fine + 4 * n_m, (n_w + n_m) * K10_VOXEL_OPS
+
+
+def frame_kernel_phase(dev, stamp, err, smi):
+    """Phase 13: K10u, K13, K13s, K14, K15 and K16 against their plain versions on the card,
+    timed, with their bounds.  Returns (times, bounds, library)."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.render import brickmap, camera, denoise, reproject, sky, tonemap, tracer
+    from mega_minecraft_tpu_torch.terrain import pipeline
+
+    stamp("phase 13: K10u (featured 33x33 scene: a bucket, a removal, an edge bucket), K13, K13s, K14, K15 "
+          "and K16 (960x540 / 1920x1080, moved camera) against their plain versions")
+    times, bounds, library = {}, {}, {}
+    area33 = pipeline.generate_area(-16, -16, 33, 33, features=True, device=dev)
+    # the camera over the chunks [-2, 2) around the origin, as the 10x10 bench camera
+    blocks33, hmax = area33["blocks"], float(area33["heightfield"].view(33, 33, 16, 16)[14:18, 14:18].max())
+    del area33
+    scene = brickmap.build_scene(blocks33, -16, -16)
+    slot_table = blocks33.reshape(33 * 33, 16, 16, 384)
+    e10u = 0.0
+    # (tag, bucket row, bucket column, the bucket whose slots are written there, mask)
+    one_air = [True] * 4 + [False] + [True] * 4
+    cases = (("bucket (4, 5) rewritten from bucket (2, 7), one chunk air", 4, 5, 2, 7, one_air),
+             ("bucket (6, 6) removed (all air)", 6, 6, 6, 6, [False] * 9),
+             ("edge bucket (10, 10), clamped window", 10, 10, 1, 1, [True] * 9))
+    for tag, bz, bx, sz, sx, mask in cases:
+        slots = [(sz * 3 + dz) * 33 + sx * 3 + dx for dz in range(3) for dx in range(3)]
+        z0, x0 = bz * 48, bx * 48
+        want = brickmap.update_chunks_plain(scene, slot_table, slots, mask, 3, 3, z0, x0)
+        before = scene.flat.clone()
+        kernels.reset_launch_counts()
+        scene = brickmap.update_chunks(scene, slot_table, slots, mask, 3, 3, z0, x0)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["update_chunks"] == 1, "update_chunks: not one K10u launch")
+        moved = int((scene.flat != before).sum())
+        e10u = max(e10u, check_equal(f"K10u {tag} ({moved} words changed)", scene.flat, want))
+        check(moved > 10000, f"K10u {tag}: the update changed {moved} words")
+    err["update_chunks"] = e10u
+    slots = [(2 * 3 + dz) * 33 + 7 * 3 + dx for dz in range(3) for dx in range(3)]
+    args = (slot_table, slots, [True] * 9, 3, 3, 4 * 48, 5 * 48)
+    k_ms = cuda_ms(lambda: brickmap.update_chunks(scene, *args), 10)
+    p_ms = cuda_ms(lambda: brickmap.update_chunks_plain(scene, *args), 2)
+    zlo, xlo, wz, wx = brickmap.update_window(scene.dims, 3, 3, 4 * 48, 5 * 48)
+    times["update_chunks"] = (k_ms, p_ms)
+    bounds["update_chunks"] = bound(*k10u_counts(scene.dims, 3, 3, wz * wx * 384))
+    print(f"  K10u on {smi}: {k_ms:.4f} ms a 3x3 bucket ({wz}x{wx}x384 window), plain {p_ms:.3f} ms, bound "
+          f"{bounds['update_chunks'][0]:.4g} ms by {bounds['update_chunks'][1]}")
+
+    h, w = 540, 960
+    player = camera.Player(pos=np.array([0.0, hmax + 16.0, -60.0], np.float32), theta=0.05, phi=-0.22)
+    moved_player = camera.Player(pos=player.pos + np.array([0.6, 0.3, 2.0], np.float32), theta=0.08, phi=-0.21)
+    params = sky.sky_params(1.0, 0.0, device=dev)
+    cam0, cam1 = player.camera_params(w, h, device=dev), moved_player.camera_params(w, h, device=dev)
+    fbs = tracer.init_framebuffers(h, w, device=dev, temporal=True)
+    for fid in range(3):
+        fbs = reproject.render_accumulate_static(fbs, scene, cam0, params, h, w, fid)
+    c, a, n, d = tracer.render_sample(scene, cam1, params, h, w, 3, want_depth=True)
+    got = reproject.accumulate_temporal(fbs, cam0, cam1, c, a, n, d)
+    want = reproject.temporal_blend(fbs, cam0, cam1, c, a, n, d)
+    err["reproject"] = max(check_equal(f"K13 960x540 {k}", x.view(torch.int32), y.view(torch.int32))
+                           for k, x, y in zip(got._fields, got, want))
+    kept = float((got.nsamp > 1.0).double().mean())
+    print(f"  K13: the history survived the move on {kept:.4f} of the pixels")
+    check(0.2 < kept < 1.0, f"K13: history kept on {kept} of the pixels")
+    got_s = reproject.accumulate_static(fbs, c, a, n, d)
+    want_s = reproject.static_blend(fbs, c, a, n, d)
+    err["static_blend"] = max(check_equal(f"K13s 960x540 {k}", x.view(torch.int32), y.view(torch.int32))
+                              for k, x, y in zip(got_s._fields, got_s, want_s))
+    fbs = got
+    den = denoise.atrous_denoise(fbs.color, fbs.albedo, fbs.normal, nsamp=fbs.nsamp)
+    err["atrous_denoise"] = check_equal("K14 960x540 (nsamp)", den.view(torch.int32), denoise.atrous_denoise_plain(
+        fbs.color, fbs.albedo, fbs.normal, nsamp=fbs.nsamp).view(torch.int32))
+    den0 = denoise.atrous_denoise(fbs.color, fbs.albedo, fbs.normal)
+    err["atrous_denoise"] = max(err["atrous_denoise"], check_equal(
+        "K14 960x540 (fixed sigma)", den0.view(torch.int32),
+        denoise.atrous_denoise_plain(fbs.color, fbs.albedo, fbs.normal).view(torch.int32)))
+    up = denoise.upscale2x(den)
+    err["upscale2x"] = check_equal("K15 960x540 -> 1920x1080", up.view(torch.int32),
+                                   denoise.upscale2x_plain(den).view(torch.int32))
+    interp = lambda: torch.nn.functional.interpolate(  # noqa: E731
+        den.permute(2, 0, 1)[None], scale_factor=2, mode="bilinear", align_corners=False)
+    lib = interp()[0].permute(1, 2, 0)
+    rel = float(((up - lib).abs() / lib.abs().clamp(min=1e-30)).max())
+    print(f"  K15 against F.interpolate(bilinear, align_corners=False): max relative |diff| {rel:.3g}")
+    check(rel <= 1e-6, f"K15 differs from torch's bilinear upscale by {rel}")
+    img = tonemap.present(up)
+    err["present"] = check_equal("K16 1920x1080", img, tonemap.present_plain(up))
+    check(tuple(img.shape) == (1080, 1920, 3) and float(img.float().std()) > 5.0, "K16: a flat frame")
+
+    px = h * w
+    calls = {
+        "reproject": (lambda: reproject.accumulate_temporal(fbs, cam0, cam1, c, a, n, d),
+                      lambda: reproject.temporal_blend(fbs, cam0, cam1, c, a, n, d), bound(px * 32 * 4, 0)),
+        "static_blend": (lambda: reproject.accumulate_static(fbs, c, a, n, d),
+                         lambda: reproject.static_blend(fbs, c, a, n, d), bound(px * 32 * 4, 0)),
+        "atrous_denoise": (lambda: denoise.atrous_denoise(fbs.color, fbs.albedo, fbs.normal, nsamp=fbs.nsamp),
+                           lambda: denoise.atrous_denoise_plain(fbs.color, fbs.albedo, fbs.normal,
+                                                                nsamp=fbs.nsamp),
+                           bound(px * 4 * (4 * 6 + 7), px * (4 * 25 * ATROUS_TAP_OPS + 4 * 3))),
+        "upscale2x": (lambda: denoise.upscale2x(den), lambda: denoise.upscale2x_plain(den),
+                      bound(px * 3 * 4 * 5, 4 * px * 3 * 3)),
+        "present": (lambda: tonemap.present(up), lambda: tonemap.present_plain(up),
+                    bound(4 * px * 3 * 5, 4 * px * 3 * 20)),
+    }
+    for name, (kern, plain, bnd) in calls.items():
+        p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kern, 50), cuda_ms(kern, 50), cuda_ms(plain, 2)
+        times[name], bounds[name] = ((k1 + k2) / 2, (p1 + p2) / 2), bnd
+        print(f"    {name:15s} kernel {times[name][0]:.4f} ms, bound {bnd[0]:.4g} ms by {bnd[1]} "
+              f"({bnd[0] / times[name][0]:.1%} of it), plain {times[name][1]:.3f} ms on {smi}")
+    library["upscale2x"] = cuda_ms(interp, 50)
+    print(f"    upscale2x's library call F.interpolate: {library['upscale2x']:.4f} ms")
+    del scene, blocks33, slot_table
+    torch.cuda.empty_cache()
+    return times, bounds, library
+
+
+def flythrough_phase(dev, stamp, smi):
+    """Phase 14: the reference fly-through (bench_flythrough.py:27-36): the drain, then with
+    the counts reset around them the upload, 30 ticks 2 blocks forward and one present,
+    timed; the presented frame against the plain present chain on the same buffers; the
+    same run again on a second engine with the 30 ticks and the present under
+    torch.profiler, for the device's idle share and the split by stage.  Returns the launch
+    counts of the upload, the 30 ticks and the present."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
+    from mega_minecraft_tpu_torch.render import denoise, tonemap
+
+    stamp("phase 14: the reference fly-through: Engine(1920x1080, upscaled from 960x540, view_chunks=33, "
+          "gen_radius=None, erosion, denoise, reprojection)")
+    cfg = EngineConfig(width=1920, height=1080, view_chunks=33, gen_radius=None, skip_erosion=False,
+                       use_denoising=True, use_upscaling=True, use_reprojection=True, native_scheduler=True,
+                       device="cuda")
+    eng = Engine(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = eng.scheduler.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    n_new = len(eng.scheduler.newly_filled)
+    sched_s = [0.0]
+    tick = eng.scheduler.tick
+
+    def timed_tick(dt):
+        t = time.perf_counter()
+        tick(dt)
+        sched_s[0] += time.perf_counter() - t
+
+    eng.scheduler.tick = timed_tick
+    # the main path's run: the upload of the drained world, then the 30 ticks and the present
+    # (the scene window stays put, so the flight streams chunks outside it: its K10u
+    # launches are the upload's)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng._upload_new_chunks()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    buckets = kernels.launch_counts()["update_chunks"]
+    print(f"  initial drain {frames} frames in {drain_s:.4f} s, {eng.drawable_chunks()} drawable; upload of "
+          f"{n_new} chunks in {buckets} K10u buckets: {upload_s:.4f} s, on {smi}")
+    check(eng.drawable_chunks() == 1089 and buckets == 121, "the drain or the upload is not the reference's")
+    t0 = time.perf_counter()
+    for _ in range(FLY_FRAMES):
+        eng.tick(1.0 / 30.0, move=(0.0, 0.0, 2.0))
+    img = eng.present()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ms = wall / FLY_FRAMES * 1e3
+    print(f"  {FLY_FRAMES} ticks + present: {ms:.3f} ms/frame ({wall:.4f} s), scheduler tick host time "
+          f"{sched_s[0] / FLY_FRAMES * 1e3:.3f} ms/frame; mean nsamp {float(eng.fbs.nsamp.mean()):.2f}; "
+          f"launches {launches}")
+    check(launches["render_sample"] == FLY_FRAMES, f"{launches['render_sample']} K11 launches")
+    check(launches["reproject"] + launches["static_blend"] == FLY_FRAMES, "not one K13 / K13s per tick")
+    check(launches["static_blend"] == 1, "the first tick after the upload is not static (K13s)")
+    check(launches["update_chunks"] >= buckets, "K10u launches")
+    for name in ("atrous_denoise", "upscale2x", "present"):
+        check(launches[name] == 1, f"{name}: {launches[name]} launches in one present")
+    check(launches["accumulate"] == 0 and launches["scene_fields"] == 0, "K12 or K10 ran in the fly-through")
+    check(img.shape == (1080, 1920, 3) and img.dtype == np.uint8, f"presented frame {img.shape} {img.dtype}")
+    fbs = eng.fbs
+    plain = tonemap.present_plain(denoise.upscale2x_plain(denoise.atrous_denoise_plain(
+        fbs.color, fbs.albedo, fbs.normal, nsamp=fbs.nsamp))).cpu().numpy()
+    n_diff = int((img != plain).sum())
+    print(f"  the presented frame against the plain denoise -> upscale -> present chain: {n_diff} of "
+          f"{img.size} channels differ; mean {img.mean():.2f}, std {img.std():.2f}")
+    check(n_diff == 0, "the presented frame differs from the plain chain")
+    check(img.std() > 5.0, "the presented frame is flat")
+
+    eng.scheduler.tick = tick
+    del eng
+    torch.cuda.empty_cache()
+    # the same 30 frames of a second engine, traced: the drain and the upload untraced
+    eng = Engine(cfg)
+    eng.scheduler.drain()
+    eng._upload_new_chunks()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FLY_FRAMES):
+            eng.tick(1.0 / 30.0, move=(0.0, 0.0, 2.0))
+        traced_img = eng.present()
+        traced_wall = time.perf_counter() - t0
+    check(np.array_equal(traced_img, img), "the traced fly-through presents another frame")
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if spans:
+        busy, reach, by_stage = 0.0, float("-inf"), {}
+        for a, b, name in spans:
+            busy += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+            stage = next((st for k, st in STAGE_OF_KERNEL if k in name), None)
+            if stage is None:
+                stage = "copies" if "emcpy" in name or "emset" in name else "generation and other"
+            by_stage[stage] = by_stage.get(stage, 0.0) + (b - a)
+        print(f"  the same {FLY_FRAMES} frames traced ({traced_wall * 1e3:.3f} ms under the profiler, the same "
+              f"frame presented): {len(spans)} device events, device busy {busy / 1e3:.3f} ms of the clean run's "
+              f"{wall * 1e3:.3f} ms, idle share {1 - busy / 1e3 / (wall * 1e3):.1%}; device ms per frame by "
+              "stage: " + ", ".join(f"{k} {v / 1e3 / FLY_FRAMES:.4f}"
+                                    for k, v in sorted(by_stage.items(), key=lambda kv: -kv[1])))
+    else:
+        print("  traced fly-through: the profiler recorded no device events; idle share: not measured")
+    del eng, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv):
     p = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port once on one GPU.")
     p.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v output")
@@ -1547,6 +1831,11 @@ def main(argv):
     # -- 10-12. the render path --------------------------------------------------------------
     render_launches, render_times, render_bounds = render_phases(dev, stamp, err, smi)
 
+    # -- 13-14. the engine's frame path ------------------------------------------------------
+    frame_times, frame_bounds, library = frame_kernel_phase(dev, stamp, err, smi)
+    library["layers_slots"] = stream_times.pop(("library", "layers_slots"))
+    frame_launches = flythrough_phase(dev, stamp, smi)
+
     # launches: the area kernels' from the featured 5x5 run, the streaming kernels' from the
     # reference workload's drain; times and bounds at the shapes of those paths
     def row(name):
@@ -1554,6 +1843,8 @@ def main(argv):
             return (launches[name], times[(name, 5)], bounds[5][name])
         if name in RENDER_KERNELS:
             return (render_launches[name], render_times[name], render_bounds[name])
+        if name in FRAME_KERNELS:
+            return (frame_launches[name], frame_times[name], frame_bounds[name])
         return (stream_launches[name], stream_times[name], stream_bounds[name])
 
     report = {"kernels": []}
@@ -1562,7 +1853,7 @@ def main(argv):
         report["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
+            "bound_by": b_by, "library_ms": library.get(name)})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "mega_minecraft_tpu" or m.startswith("mega_minecraft_tpu.")]
     check(not bad, f"jax or the JAX package was imported: {bad[:5]}")

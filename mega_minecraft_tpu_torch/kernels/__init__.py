@@ -1,6 +1,7 @@
 """Launch wrappers of the hand-written CUDA kernels (K1-K9, K2s, K7s and K7's stream
 pre-kernel; the render path's K10 scene fields, K11t trace, K11 render_sample and K12
-accumulate).
+accumulate; the engine's frame path: K10u update_chunks, K13 reproject, K13s
+static_blend, K14 atrous_denoise, K15 upscale2x and K16 present).
 
 Each wrapper checks device, dtype, shape and contiguity of its inputs, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if the C
@@ -27,7 +28,8 @@ from . import _build
 LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0, "placements": 0,
             "compact_placements": 0, "feature_streams": 0, "features": 0, "decorators": 0,
             "erosion": 0, "layers_slots": 0, "features_slots": 0, "scene_fields": 0,
-            "trace": 0, "render_sample": 0, "accumulate": 0}
+            "trace": 0, "render_sample": 0, "accumulate": 0, "update_chunks": 0,
+            "reproject": 0, "static_blend": 0, "atrous_denoise": 0, "upscale2x": 0, "present": 0}
 
 N_BIOMES = bio.NUM_BIOMES
 N_MAT = bio.NUM_MATERIALS
@@ -429,6 +431,38 @@ def scene_fields(vol):
     return flat
 
 
+def update_chunks(scene, d_blocks, slots, mask, gz: int, gx: int, z0: int, x0: int) -> None:
+    """K10u: the gz x gx chunks ``slots`` (host ints, row-major; air where ``mask`` is
+    false) of the slot table ``d_blocks`` [C, 16, 16, 384] u8 written into ``scene`` at
+    volume offset (z0, x0), its window re-swept and its macro level recomputed, in place.
+    The slots go to the kernel by value: nothing is copied to the card."""
+    from ..render import brickmap
+
+    dev = scene.flat.device
+    Z, X, Y = scene.dims
+    _check(scene.flat, "scene.flat", torch.int32, (Z * X * Y + Z * X * Y // 64,), dev)
+    _check(d_blocks, "d_blocks", torch.uint8, (d_blocks.shape[0], 16, 16, Y), dev)
+    n_reg = gz * gx
+    if n_reg > brickmap.MAX_REGION_CHUNKS:
+        raise ValueError(f"region of {n_reg} chunks: at most {brickmap.MAX_REGION_CHUNKS}")
+    slots, mask = np.asarray(slots).reshape(-1), np.asarray(mask, bool).reshape(-1)
+    if ((slots[mask] < 0) | (slots[mask] >= d_blocks.shape[0])).any():
+        raise ValueError(f"slots {slots.tolist()} outside the slot table of {d_blocks.shape[0]}")
+    zlo, xlo, wz, wx = brickmap.update_window(scene.dims, gz, gx, z0, x0)
+    n_w, n_m = wz * wx * Y, Z * X * Y // 64
+    n_s = max(n_w, n_m)
+    ints = torch.empty((3 * n_s + 2 * max(wz * wx, Z * X // 16),), dtype=torch.int32, device=dev)
+    bytes_ = torch.empty((2 * n_s + n_w,), dtype=torch.uint8, device=dev)
+    cols = ints[3 * n_s:]
+    alpha = _alpha_tables(dev, np.asarray(brickmap.ALPHA_TESTED, np.uint8).tobytes(),
+                          np.asarray(brickmap.ALPHA_T_FRAC, np.uint8).tobytes())
+    c_slots = (ctypes.c_int * max(n_reg, 1))(*np.where(mask, slots, -1).tolist())
+    with torch.cuda.device(dev):
+        _launch("update_chunks", _build.load().mmt_update_chunks, _p(scene.flat), _p(d_blocks), c_slots,
+                gz, gx, z0, x0, zlo, xlo, wz, wx, _p(alpha), Z, X, Y, _p(bytes_), _p(bytes_[n_s:]),
+                _p(ints), _p(ints[n_s:]), _p(bytes_[2 * n_s:]), _p(cols), _p(cols[cols.numel() // 2:]))
+
+
 class _SceneArgs(ctypes.Structure):
     _fields_ = [("flat", ctypes.c_void_p), ("tex_diff", ctypes.c_void_p), ("zdim", ctypes.c_int),
                 ("xdim", ctypes.c_int), ("ydim", ctypes.c_int), ("o0", ctypes.c_float),
@@ -560,3 +594,96 @@ def accumulate(c_old, a_old, n_old, color, albedo, normal, frame_id: int):
             _launch("accumulate", _build.load().mmt_accumulate, _p(c_old), _p(a_old), _p(n_old),
                     _p(color), _p(albedo), _p(normal), color.numel(), fid, mult, *(_p(o) for o in outs))
     return outs
+
+
+# ---------------------------------------------------------------------------------------
+# the engine's frame path (csrc/reproject.cu, csrc/denoise.cu, csrc/present.cu)
+# ---------------------------------------------------------------------------------------
+
+
+def _check_history(fbs, c, a, n, d):
+    dev = d.device
+    H, W = d.shape
+    for name, t in (("fbs.color", fbs.color), ("fbs.albedo", fbs.albedo), ("fbs.normal", fbs.normal),
+                    ("color", c), ("albedo", a), ("normal", n)):
+        _check(t, name, torch.float32, (H, W, 3), dev)
+    for name, t in (("fbs.depth", fbs.depth), ("fbs.nsamp", fbs.nsamp), ("depth", d)):
+        _check(t, name, torch.float32, (H, W), dev)
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    return dev, H, W, (e(H, W, 3), e(H, W, 3), e(H, W, 3), e(H, W), e(H, W))
+
+
+def reproject(fbs, cam_prev, cam, c, a, n, d):
+    """K13: the sample (c, a, n [H, W, 3], d [H, W] f32) blended into the history ``fbs``
+    reprojected from ``cam_prev`` to ``cam`` -> (colour, albedo, normal, depth, nsamp),
+    new buffers."""
+    dev, H, W, outs = _check_history(fbs, c, a, n, d)
+    for cm in (cam_prev, cam):
+        for t, k in zip(cm, (3, 3, 3, 3, 2)):
+            if t.device != dev or t.dtype != torch.float32 or t.numel() != k:
+                raise ValueError(f"camera: {t.dtype} {tuple(t.shape)} on {t.device}, expected {k} f32 on {dev}")
+    cams = torch.cat([t.reshape(-1) for t in (*cam_prev, *cam)])
+    if H * W:
+        with torch.cuda.device(dev):
+            _launch("reproject", _build.load().mmt_reproject, *(_p(t) for t in fbs[:5]), _p(c), _p(a), _p(n),
+                    _p(d), _p(cams), H, W, *(_p(o) for o in outs))
+    return outs
+
+
+def static_blend(fbs, c, a, n, d):
+    """K13s: the sample blended into the history of a static camera (shortened to 3 where
+    the first-hit distance moved) -> (colour, albedo, normal, depth, nsamp), new buffers."""
+    dev, H, W, outs = _check_history(fbs, c, a, n, d)
+    if H * W:
+        with torch.cuda.device(dev):
+            _launch("static_blend", _build.load().mmt_static_blend, *(_p(t) for t in fbs[:5]), _p(c), _p(a),
+                    _p(n), _p(d), H * W, *(_p(o) for o in outs))
+    return outs
+
+
+def atrous_denoise(color, albedo, normal, nsamp, iterations: int, sigma_color: float, sigma_albedo: float,
+                   sigma_normal: float):
+    """K14: ``iterations`` à-trous passes over [H, W, 3] f32 colour with its albedo and
+    normal guides (and [H, W] f32 ``nsamp`` or None) -> denoised colour.  One count per
+    call; one launch per iteration."""
+    from ..render.denoise import sigma_terms
+
+    dev = color.device
+    H, W = color.shape[0], color.shape[1]
+    for name, t in (("color", color), ("albedo", albedo), ("normal", normal)):
+        _check(t, name, torch.float32, (H, W, 3), dev)
+    if nsamp is not None:
+        _check(nsamp, "nsamp", torch.float32, (H, W), dev)
+    if iterations < 1:
+        return color.clone()
+    inv_sc2, sa2, sn2 = sigma_terms(sigma_color, sigma_albedo, sigma_normal)
+    bufs = torch.empty((2, H, W, 3), dtype=torch.float32, device=dev)
+    if H * W:
+        with torch.cuda.device(dev):
+            _launch("atrous_denoise", _build.load().mmt_atrous_denoise, _p(color), _p(albedo), _p(normal),
+                    None if nsamp is None else _p(nsamp), iterations, inv_sc2,
+                    float(np.float32(sigma_color ** 2)), sa2, sn2, H, W, _p(bufs))
+    return bufs[(iterations - 1) % 2]
+
+
+def upscale2x(img):
+    """K15: bilinear 2x upscale, [H, W, 3] f32 -> [2H, 2W, 3] f32."""
+    dev = img.device
+    H, W = img.shape[0], img.shape[1]
+    _check(img, "img", torch.float32, (H, W, 3), dev)
+    out = torch.empty((2 * H, 2 * W, 3), dtype=torch.float32, device=dev)
+    if H * W:
+        with torch.cuda.device(dev):
+            _launch("upscale2x", _build.load().mmt_upscale2x, _p(img), H, W, _p(out))
+    return out
+
+
+def present(hdr):
+    """K16: ACES tonemap and gamma, [H, W, 3] f32 -> [H, W, 3] u8."""
+    dev = hdr.device
+    _check(hdr, "hdr", torch.float32, (hdr.shape[0], hdr.shape[1], 3), dev)
+    out = torch.empty(hdr.shape, dtype=torch.uint8, device=dev)
+    if hdr.numel():
+        with torch.cuda.device(dev):
+            _launch("present", _build.load().mmt_present, _p(hdr), hdr.numel(), _p(out))
+    return out

@@ -74,12 +74,27 @@ SIGNATURES = {
     "mmt_decorators": [_P] * 7 + [_I, _P, _P],
     # vol, alpha tables, Z, X, Y, out flat, scratch a, b, mask, top, sky, stream
     "mmt_scene_fields": [_P, _P, _I, _I, _I] + [_P] * 7,
+    # flat (in/out), d_blocks, host slots, gz, gx, z0, x0, zlo, xlo, wz, wx, alpha tables, Z,
+    # X, Y, scratch wvol, wmask, a, b, qseed, top, sky, stream
+    "mmt_update_chunks": [_P, _P, _P] + [_I] * 8 + [_P] + [_I] * 3 + [_P] * 8,
     # &TraceArgs, stream
     "mmt_trace": [_P, _P],
     # &RenderArgs, stream
     "mmt_render_sample": [_P, _P],
     # old colour, albedo, normal, new colour, albedo, normal, count, fid, mult, out x3, stream
     "mmt_accumulate": [_P] * 6 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [_P] * 4,
+    # history colour, albedo, normal, depth, nsamp, sample colour, albedo, normal, depth, cams,
+    # H, W, out colour, albedo, normal, depth, nsamp, stream
+    "mmt_reproject": [_P] * 10 + [_I, _I] + [_P] * 6,
+    # the 9 inputs of mmt_reproject, count, the 5 outputs, stream
+    "mmt_static_blend": [_P] * 9 + [ctypes.c_longlong] + [_P] * 6,
+    # colour, albedo, normal, nsamp (or null), iterations, 1/sc2, sc2, sa2, sn2, H, W, out
+    # buffers [2, H, W, 3], stream
+    "mmt_atrous_denoise": [_P] * 4 + [_I] + [ctypes.c_float] * 4 + [_I, _I, _P, _P],
+    # img, H, W, out, stream
+    "mmt_upscale2x": [_P, _I, _I, _P, _P],
+    # hdr, count, out u8, stream
+    "mmt_present": [_P, ctypes.c_longlong, _P, _P],
 }
 
 
@@ -172,7 +187,7 @@ def feature_tables_header() -> str:
 
 
 def render_tables_header() -> str:
-    """C tables of the render path (K10-K11): the scene encoding's constants, the solid
+    """C tables of the render path (K10-K11, K10u): the scene encoding's constants, the solid
     table, the packed block properties and the material-class scalars, made from the
     numpy modules the plain versions read.  The alpha-flag and transparent-fraction
     tables and the texel tables go to the kernels as device tensors."""
@@ -182,6 +197,7 @@ def render_tables_header() -> str:
     lines = ["// generated by mega_minecraft_tpu_torch/kernels/_build.py; do not edit", "#pragma once"]
     defines = {"EMPTY_BASE": brickmap.EMPTY_BASE, "DIST_CAP": brickmap.DIST_CAP,
                "SKY_R": brickmap.SKY_R, "MACRO_SCALE": brickmap.MACRO_SCALE,
+               "MAX_REGION_CHUNKS": brickmap.MAX_REGION_CHUNKS,
                "X_SHAPED_LO": X_SHAPED_LO, "X_SHAPED_HI": X_SHAPED_HI}
     lines += [f"#define {k} {int(v)}" for k, v in defines.items()]
     lines.append(_c_array("RENDER_SOLID_TAB", np.asarray(RENDER_SOLID, np.uint8), "uint8_t"))

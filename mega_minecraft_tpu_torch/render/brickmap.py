@@ -9,7 +9,10 @@ with the same encoding follows the fine field in ONE flat i32 buffer.
 
 ``build_scene`` makes the fields with K10 (``csrc/brickmap.cu``) for a CUDA input and
 with the plain versions below (the JAX package's doubling rounds, in PyTorch) for a CPU
-input.  The update path (``update_chunks``) belongs to the engine slice.
+input.  ``update_chunks`` (brickmap.py:325,377 with the engine's ``_assemble_region``
+folded in) writes a region of slot-table chunks into a scene and re-sweeps a window
+around it, seeded from the old words: K10u (``mmt_update_chunks`` in the same source) on
+the card, ``update_chunks_plain`` on the CPU.
 
 Encoding (i32): bits 0-7 block id if solid, else EMPTY_BASE−1+distance; bits 8-13
 up-clearance (horizontal L∞ distance to the nearest solid at or above y); bits 14-19
@@ -34,6 +37,9 @@ MACRO_SCALE = 4
 
 I32 = torch.int32
 I64 = torch.int64
+#: the most chunks one ``update_chunks`` region holds on the card (K10u takes the slots by
+#: value; the engine's buckets are 3x3)
+MAX_REGION_CHUNKS = 16
 
 
 class Scene:
@@ -86,11 +92,15 @@ def _shift_max(d, s: int, axis: int, fill):
     return torch.maximum(d, torch.maximum(lo, hi))
 
 
-def chebyshev_distance(solid, cap: int = DIST_CAP, axes=(0, 1, 2)):
-    """Exact bounded L∞ distance-to-solid via doubling rounds ([Z, X, Y] bool -> i32);
-    ``axes`` restricts the metric ((0, 1) = horizontal only)."""
-    d = torch.where(solid, torch.zeros((), dtype=I32, device=solid.device),
-                    torch.full((), cap, dtype=I32, device=solid.device))
+def chebyshev_distance(solid, cap: int = DIST_CAP, axes=(0, 1, 2), init=None):
+    """Bounded L∞ distance-to-solid via doubling rounds ([Z, X, Y] bool -> i32);
+    ``axes`` restricts the metric ((0, 1) = horizontal only); ``init`` seeds the
+    non-solid voxels with a known upper bound (window updates: solids just outside the
+    window stay accounted for)."""
+    far = torch.full((), cap, dtype=I32, device=solid.device)
+    if init is not None:
+        far = torch.clamp(init.to(I32), max=cap)
+    d = torch.where(solid, torch.zeros((), dtype=I32, device=solid.device), far)
     s = 1
     while s < cap:
         e = d
@@ -101,18 +111,18 @@ def chebyshev_distance(solid, cap: int = DIST_CAP, axes=(0, 1, 2)):
     return torch.clamp(d, max=cap)
 
 
-def _up_clearance(solid, cap: int = DIST_CAP):
+def _up_clearance(solid, cap: int = DIST_CAP, init=None):
     """Horizontal L∞ distance to the nearest solid at or above this y."""
     half = torch.flip(torch.cumsum(torch.flip(solid, (2,)).to(I32), dim=2), (2,)) > 0
-    return chebyshev_distance(half, cap, axes=(0, 1))
+    return chebyshev_distance(half, cap, axes=(0, 1), init=init)
 
 
-def _slab_clearance(solid, k: int, cap: int = DIST_CAP):
+def _slab_clearance(solid, k: int, cap: int = DIST_CAP, init=None):
     """Horizontal L∞ distance to the nearest solid with y′ ∈ [y−k, y]."""
     cs = torch.cumsum(solid.to(I32), dim=2)
     lag = torch.cat([torch.zeros(cs.shape[:2] + (k + 1,), dtype=cs.dtype, device=cs.device),
                      cs[:, :, : -(k + 1)]], dim=2)
-    return chebyshev_distance((cs - lag) > 0, cap, axes=(0, 1))
+    return chebyshev_distance((cs - lag) > 0, cap, axes=(0, 1), init=init)
 
 
 def _dilate_max_2d(d, r: int, fill):
@@ -127,15 +137,17 @@ def _dilate_max_2d(d, r: int, fill):
     return d
 
 
-def _skyline_descent(solid, r: int = SKY_R):
-    """(y − max solid top within horizontal L∞ radius r) // 4, clipped to [0, 31]."""
+def _skyline_descent(solid, r: int = SKY_R, init=None):
+    """(y − max solid top within horizontal L∞ radius r) // 4, clipped to [0, 31]
+    (and to ``init`` where given)."""
     ydim = solid.shape[2]
     yidx = torch.arange(ydim, dtype=I32, device=solid.device)
     top = torch.where(solid, yidx[None, None, :], torch.full((), -1, dtype=I32,
                                                               device=solid.device)).amax(dim=2)
     sky = _dilate_max_2d(top, r, -1)
-    return torch.div(torch.clamp(yidx[None, None, :] - sky[:, :, None], 0, 124), 4,
-                     rounding_mode="floor")
+    q = torch.div(torch.clamp(yidx[None, None, :] - sky[:, :, None], 0, 124), 4,
+                  rounding_mode="floor")
+    return q if init is None else torch.minimum(q, init.to(I32))
 
 
 def _to_i32(word64):
@@ -143,21 +155,25 @@ def _to_i32(word64):
     return torch.where(word64 >= 2 ** 31, word64 - 2 ** 32, word64).to(I32)
 
 
-def _clearance_bits(solid, cap: int = DIST_CAP):
-    up = torch.clamp(_up_clearance(solid, cap), 0, 63)
-    c2 = torch.clamp(_slab_clearance(solid, 2, cap), 0, 63)
-    c8 = torch.clamp(_slab_clearance(solid, 8, cap), 0, 63)
-    q = _skyline_descent(solid)
+def _clearance_bits(solid, cap: int = DIST_CAP, init_up=None, init_c2=None, init_c8=None,
+                    init_q=None):
+    up = torch.clamp(_up_clearance(solid, cap, init_up), 0, 63)
+    c2 = torch.clamp(_slab_clearance(solid, 2, cap, init_c2), 0, 63)
+    c8 = torch.clamp(_slab_clearance(solid, 8, cap, init_c8), 0, 63)
+    q = _skyline_descent(solid, init=init_q)
     return (up.to(I64) << 8) | (c2.to(I64) << 14) | (c8.to(I64) << 20) | (q.to(I64) << 26)
 
 
-def _encode(vol_i32, solid, cap: int = DIST_CAP):
-    """Packed fine words of a [Z, X, Y] volume of block ids and its solid mask."""
+def _encode(vol_i32, solid, cap: int = DIST_CAP, init_dist=None, init_up=None, init_c2=None,
+            init_c8=None, init_q=None):
+    """Packed fine words of a [Z, X, Y] volume of block ids and its solid mask (the
+    ``init_*`` seeds as in ``chebyshev_distance``).  Non-solid voxels may hold any value
+    up to 255 (a window's old empty codes): the alpha tables are read at solids only."""
     assert cap <= 63, "clearance fields are 6-bit"
-    dist = chebyshev_distance(solid, cap)
+    dist = chebyshev_distance(solid, cap, init=init_dist)
     low = torch.where(solid, vol_i32, (EMPTY_BASE - 1) + torch.clamp(dist, 1, 255 - EMPTY_BASE + 1))
-    word = low.to(I64) | _clearance_bits(solid, cap)
-    idx = vol_i32.long()
+    word = low.to(I64) | _clearance_bits(solid, cap, init_up, init_c2, init_c8, init_q)
+    idx = torch.where(solid, vol_i32, torch.zeros_like(vol_i32)).long()
     flag = solid & torch.as_tensor(ALPHA_TESTED, device=solid.device)[idx]
     t_frac = torch.as_tensor(ALPHA_T_FRAC.astype(np.int64), device=solid.device)[idx]
     word = word | (flag.to(I64) << 31) | torch.where(flag, t_frac << 8, torch.zeros_like(t_frac))
@@ -233,3 +249,98 @@ def build_scene(chunk_blocks, origin_chunk_x: int, origin_chunk_z: int, device="
         require_cpu(vol)
         flat = build_fields_plain(vol)
     return Scene(flat, (origin_chunk_x * 16, 0, origin_chunk_z * 16), vol.shape)
+
+
+# ---------------------------------------------------------------------------
+# streamed scene updates (brickmap.py:325-391, engine.py:31-37)
+# ---------------------------------------------------------------------------
+
+
+def update_window(dims, gz: int, gx: int, z0: int, x0: int):
+    """(zlo, xlo, wz, wx): the re-sweep window of a gz x gx-chunk region at volume offset
+    (z0, x0): the region padded by DIST_CAP on each side, cut to the volume, its start
+    clamped as ``dynamic_slice`` clamps it."""
+    zdim, xdim, _ = dims
+    wz = min(gz * 16 + 2 * DIST_CAP, zdim)
+    wx = min(gx * 16 + 2 * DIST_CAP, xdim)
+    zlo = min(max(z0 - DIST_CAP, 0), zdim - wz)
+    xlo = min(max(x0 - DIST_CAP, 0), xdim - wx)
+    return zlo, xlo, wz, wx
+
+
+def _check_region(scene: Scene, slots, mask, gz: int, gx: int, z0: int, x0: int):
+    slots = np.asarray(slots, np.int64).reshape(-1)
+    mask = np.asarray(mask, bool).reshape(-1)
+    if slots.shape != (gz * gx,) or mask.shape != (gz * gx,):
+        raise ValueError(f"slots / mask: {slots.shape} / {mask.shape}, expected ({gz * gx},)")
+    zdim, xdim, _ = scene.dims
+    if not (0 <= z0 and z0 + gz * 16 <= zdim and 0 <= x0 and x0 + gx * 16 <= xdim):
+        raise ValueError(f"region {gz}x{gx} chunks at ({z0}, {x0}) outside the {zdim}x{xdim} scene")
+    return slots, mask
+
+
+def update_chunks(scene: Scene, d_blocks, slots, mask, gz: int, gx: int, z0: int, x0: int) -> Scene:
+    """Write the gz x gx chunks of the slot table ``d_blocks`` ([C, 16, 16, 384] u8,
+    [z, x, y]) named by ``slots`` (row-major, ``gz * gx`` host integers) into the scene at
+    volume offset (z0, x0), air where ``mask`` is false, and re-sweep the distance fields
+    over the window around them; the macro field is recomputed whole.  The analogue of
+    buildChunkAccel / destroyChunk.  The scene's buffer is updated in place and returned
+    in a new Scene.  CUDA: K10u; CPU: the plain version."""
+    slots, mask = _check_region(scene, slots, mask, gz, gx, z0, x0)
+    if scene.device.type == "cuda":
+        from .. import kernels
+
+        kernels.update_chunks(scene, d_blocks, slots, mask, gz, gx, z0, x0)
+    else:
+        from ..kernels import require_cpu
+
+        require_cpu(scene.flat)
+        scene.flat.copy_(update_chunks_plain(scene, d_blocks, slots, mask, gz, gx, z0, x0))
+    return Scene(scene.flat, scene.origin, scene.dims)
+
+
+def assemble_region(d_blocks, slots, mask, gz: int, gx: int) -> torch.Tensor:
+    """[gz*16, gx*16, 384] u8 block region from slot-table chunks; air where ``mask`` is
+    false (engine.py:31 ``_assemble_region``)."""
+    dev = d_blocks.device
+    idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+    keep = torch.as_tensor(np.asarray(mask, bool), device=dev)
+    ch = torch.where(keep[:, None, None, None], d_blocks.index_select(0, idx),
+                     torch.zeros((), dtype=d_blocks.dtype, device=dev))
+    return ch.view(gz, gx, 16, 16, Y_SIZE).permute(0, 2, 1, 3, 4).reshape(gz * 16, gx * 16, Y_SIZE)
+
+
+def update_chunks_plain(scene: Scene, d_blocks, slots, mask, gz: int, gx: int, z0: int,
+                        x0: int) -> torch.Tensor:
+    """Plain version of K10u: the scene's new flat buffer (the old one is not written)."""
+    zdim, xdim, ydim = scene.dims
+    n_fine = zdim * xdim * ydim
+    field = scene.flat[:n_fine].view(zdim, xdim, ydim)
+    region = assemble_region(d_blocks, slots, mask, gz, gx)
+    dz, dx = gz * 16, gx * 16
+    zlo, xlo, wz, wx = update_window(scene.dims, gz, gx, z0, x0)
+    old = field[zlo:zlo + wz, xlo:xlo + wx]
+    window = old & 0xFF
+    # the old words' distances and clearances seed the re-sweep as upper bounds, so solids
+    # just outside the window stay accounted for at its border
+    seeds = {"dist": torch.clamp(window - (EMPTY_BASE - 1), min=1),
+             "up": (old >> 8) & 0x3F, "c2": (old >> 14) & 0x3F, "c8": (old >> 20) & 0x3F,
+             "q": (old >> 26) & 0x1F}
+    rz, rx = z0 - zlo, x0 - xlo
+    new_vals = region.to(I32)
+    new_solid = torch.as_tensor(RENDER_SOLID, device=region.device)[region.long()]
+    window = window.clone()
+    window[rz:rz + dz, rx:rx + dx] = torch.where(new_solid, new_vals,
+                                                 torch.full_like(new_vals, EMPTY_BASE))
+    # inside the updated region the old bounds do not hold: reset them to the cap (the
+    # skyline seed to 31)
+    for k, v in seeds.items():
+        v = v.clone()
+        v[rz:rz + dz, rx:rx + dx] = 31 if k == "q" else DIST_CAP
+        seeds[k] = v
+    solid = (window > 0) & (window < EMPTY_BASE)
+    words = _encode(window, solid, init_dist=seeds["dist"], init_up=seeds["up"],
+                    init_c2=seeds["c2"], init_c8=seeds["c8"], init_q=seeds["q"])
+    field = field.clone()
+    field[zlo:zlo + wz, xlo:xlo + wx] = words
+    return torch.cat([field.reshape(-1), _encode_macro(field).reshape(-1)])

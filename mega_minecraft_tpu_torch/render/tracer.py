@@ -471,12 +471,19 @@ class FrameBuffers(NamedTuple):
     color: torch.Tensor  # [H, W, 3] running average
     albedo: torch.Tensor
     normal: torch.Tensor
+    #: the temporal history (``render/reproject.py``; None on the frame-id-weighted path)
+    depth: torch.Tensor | None = None  # [H, W] first-hit distance
+    nsamp: torch.Tensor | None = None  # [H, W] per-pixel history length
 
 
-def init_framebuffers(height: int, width: int, device="cuda") -> FrameBuffers:
+def init_framebuffers(height: int, width: int, device="cuda", temporal: bool = False) -> FrameBuffers:
+    """Zeroed buffers; with ``temporal`` also depth = DEPTH_CAP and nsamp = 0."""
     dev = torch.device(device)
     z = lambda: torch.zeros((height, width, 3), dtype=F32, device=dev)  # noqa: E731
-    return FrameBuffers(z(), z(), z())
+    if not temporal:
+        return FrameBuffers(z(), z(), z())
+    return FrameBuffers(z(), z(), z(), torch.full((height, width), DEPTH_CAP, dtype=F32, device=dev),
+                        torch.zeros((height, width), dtype=F32, device=dev))
 
 
 def accumulate_weights(frame_id: int):

@@ -171,3 +171,11 @@ def sky_from_numpy(params, device):
     from .render.sky import SkyParams
 
     return SkyParams(*_f32_tensors(params, device))
+
+
+def framebuffers_from_numpy(fbs, device):
+    """Port FrameBuffers from a JAX ``FrameBuffers`` (or 3 or 5 arrays in its order; a
+    None depth / nsamp stays None)."""
+    from .render.tracer import FrameBuffers
+
+    return FrameBuffers(*(None if a is None else _f32_tensors([a], device)[0] for a in fbs))

@@ -538,6 +538,12 @@ class TerrainScheduler(_Timed):
     def loaded_chunks(self) -> list:
         return list(self.t.slot_of)
 
+    def zone_info(self, zone_pos) -> dict:
+        """Erosion readiness of the zone at ``zone_pos`` (its corner, chunk coords)."""
+        z = self.zones.get(tuple(zone_pos))
+        return {"ready": self._zone_ready_for_erosion(z) if z else False,
+                "queued": z.queued_for_erosion if z else False}
+
 
 class NativeTerrainScheduler(_Timed):
     """``TerrainScheduler`` whose host logic runs in the native C++ core
@@ -566,6 +572,15 @@ class NativeTerrainScheduler(_Timed):
 
     def state_at(self, pos) -> int:
         return self.core.state_at(int(pos[0]), int(pos[1]))
+
+    def zone_info(self, zone_pos) -> dict:
+        """Erosion readiness of the zone at ``zone_pos``: its 24x24 gathered grid all at
+        HAS_LAYERS or later (the core keeps the queued flag to itself: None)."""
+        zx, zz = int(zone_pos[0]), int(zone_pos[1])
+        half = ZONE_SIZE // 2
+        ready = all(self.core.state_at(zx + dx, zz + dz) >= int(ChunkState.HAS_LAYERS)
+                    for dz in range(-half, ZONE_SIZE + half) for dx in range(-half, ZONE_SIZE + half))
+        return {"ready": ready, "queued": None}
 
     def loaded_chunks(self) -> list:
         _, cx, cz, iu = self.core.snapshot()

@@ -4,9 +4,13 @@ version of K10) vs the JAX package's, on the same numpy volumes.
 The fields are integer, so every comparison is bit equality: the whole ``build_scene``
 buffer (fine then macro) on a seeded 32x32x384 volume holding stone, water, a crystal,
 glowstone, leaves and X-shaped flora; each building block (distance, clearances,
-skyline, macro encoding) on its solid mask; and the alpha-flag bits (31 and 8-15) on a
+skyline, macro encoding) on its solid mask; the alpha-flag bits (31 and 8-15) on a
 24x24x64 volume whose flag table is set by hand, since the procedural atlas flags no
-block.  The CUDA kernel is held to this plain version on the card
+block; and the streamed update (``update_chunks``, the plain version of K10u, with the
+engine's ``_assemble_region`` folded in) against JAX's ``_assemble_region`` +
+``update_chunks`` fed the same slot-table chunks: a region written into an empty scene,
+blocks removed, a region at the edge of a 9x9-chunk scene (clamped window) and one in its
+middle (a window smaller than the scene).  The CUDA kernel is held to this plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
@@ -156,3 +160,68 @@ def test_doubling_distance_bounds_true_linf():
     true = np.minimum(np.abs(idx[:, None, :] - pts[None]).max(-1).min(1), 63).reshape(solid.shape)
     assert (got >= true).all()
     assert got[0, 0, 18] == 5 and true[0, 0, 18] == 4
+
+
+# -- streamed updates (K10u's plain version) -------------------------------------------
+
+
+def _slot_table(seed: int, n: int) -> np.ndarray:
+    """[n, 16, 16, 384] u8 chunks cut from seeded volumes (the slot table's layout)."""
+    vol = scene_volume(seed, 32)
+    ch = vol.reshape(2, 16, 2, 16, 384).transpose(0, 2, 1, 3, 4).reshape(4, 16, 16, 384)
+    return np.ascontiguousarray(np.concatenate([ch] * (n // 4 + 1))[:n])
+
+
+def _jax_update(flat, dims, d_blocks, slots, mask, gz, gx, z0, x0):
+    from mega_minecraft_tpu.app.engine import _assemble_region
+
+    scene = jb.Scene(jnp.asarray(flat), jnp.zeros(3, jnp.int32), dims)
+    region = _assemble_region(jnp.asarray(d_blocks), jnp.asarray(slots, jnp.int32), jnp.asarray(mask), gz, gx)
+    return np.asarray(jb.update_chunks(scene, region, z0, x0).flat)
+
+
+def _port_update(flat, dims, d_blocks, slots, mask, gz, gx, z0, x0):
+    scene = tb.Scene(torch.from_numpy(flat.copy()), (0, 0, 0), dims)
+    out = tb.update_chunks(scene, torch.from_numpy(d_blocks), slots, mask, gz, gx, z0, x0)
+    assert out.flat.data_ptr() == scene.flat.data_ptr()  # in place
+    return out.flat.numpy()
+
+
+@pytest.fixture(scope="module")
+def scene9():
+    """A 9x9-chunk scene (144 x 144 x 384, wider than a one-chunk region's 142-block
+    window) built by JAX from tiled seeded volumes."""
+    vol = np.tile(scene_volume(0, 32), (5, 5, 1))[:144, :144]
+    js = jb.build_scene(jnp.asarray(vol.reshape(9, 16, 9, 16, 384).transpose(0, 2, 1, 3, 4)), 0, 0)
+    return np.array(js.flat), js.dims
+
+
+UPDATE_CASES = {
+    # scene, region (gz, gx), volume offset (z0, x0), slots, mask
+    "into_empty_scene": ("empty", 2, 2, 16, 0, [1, 2, 3, 0], [True, False, True, True]),
+    "blocks_removed": ("built", 1, 2, 16, 16, [2, 3], [False, True]),
+    "edge_clamped_window": ("9x9", 1, 1, 0, 128, [5], [True]),
+    "window_inside_scene": ("9x9", 1, 1, 64, 64, [6], [True]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UPDATE_CASES))
+def test_update_chunks_bit_equal_to_jax(case, scene9, vol):
+    kind, gz, gx, z0, x0, slots, mask = UPDATE_CASES[case]
+    if kind == "empty":
+        flat, dims = np.array(jb.empty_scene(48, 0, 0).flat), (48, 48, 384)
+    elif kind == "built":
+        chunks = vol[:32, :32].reshape(2, 16, 2, 16, 384).transpose(0, 2, 1, 3, 4)
+        js = jb.build_scene(jnp.asarray(np.tile(chunks, (2, 2, 1, 1, 1))[:3, :3]), 0, 0)
+        flat, dims = np.array(js.flat), js.dims
+    else:
+        flat, dims = scene9
+    d_blocks = _slot_table(9, 8)
+    zlo, xlo, wz, wx = tb.update_window(dims, gz, gx, z0, x0)
+    if kind == "9x9":
+        assert (wz, wx) == (gz * 16 + 126, gx * 16 + 126) and (wz, wx) < dims[:2]
+        assert (xlo == dims[1] - wx) == (case == "edge_clamped_window")
+    want = _jax_update(flat, dims, d_blocks, slots, mask, gz, gx, z0, x0)
+    got = _port_update(flat, dims, d_blocks, slots, mask, gz, gx, z0, x0)
+    np.testing.assert_array_equal(got, want)
+    assert (got != flat).sum() > 1000  # the update changed the scene

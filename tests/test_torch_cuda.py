@@ -12,7 +12,11 @@ their plain versions on the card, on a scene built from a featured 2x2 area; the
 under ``cutout_atlas``, a hand-set atlas that reaches the alpha-cutout code (K10's flag
 bits, K11t's exact park-and-resolve and stochastic pass-through on rays aimed at flagged
 voxels, K11 in both trace modes with a camera aimed at one); and one launch each of K11
-and K12 per ``render_accumulate``.
+and K12 per ``render_accumulate``.  The engine's frame path: K10u (``update_chunks``: a
+3x3 bucket into that scene, a removal and an edge bucket, bit for bit, in place), K13 and
+K13s (the blends after a moved and a static camera), K14 (with and without nsamp), K15 and
+K16, each bit for bit against its plain version on the card, and one engine tick /
+present on the card with its launch counts.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and skips
 without a card.  The file imports no JAX, so on a GPU machine without JAX it runs as
@@ -37,7 +41,8 @@ import pytest
 import torch
 
 from mega_minecraft_tpu_torch import kernels
-from mega_minecraft_tpu_torch.render import brickmap, camera, materials, sky, tracer
+from mega_minecraft_tpu_torch.render import (brickmap, camera, denoise, materials, reproject, sky, tonemap,
+                                             tracer)
 from mega_minecraft_tpu_torch.terrain import (caves, decorators, erosion, feature_placement, features,
                                               fill, heightfield, layers, pipeline, scheduler)
 from mega_minecraft_tpu_torch.world.blocks import NUM_BLOCKS, X_SHAPED_HI, X_SHAPED_LO, Block
@@ -158,9 +163,10 @@ def test_featured_5x5_matches_plain_chain_on_gpu(cuda_device):
     kernels.reset_launch_counts()
     out = pipeline.generate_area_fused(pos, 5, 5, features=True)
     torch.cuda.synchronize()
-    # erosion, the scheduler's kernels and the render path's
+    # erosion, the scheduler's kernels, the render path's and the engine's frame path's
     unused = ("erosion", "layers_slots", "features_slots", "scene_fields", "trace", "render_sample",
-              "accumulate")
+              "accumulate", "update_chunks", "reproject", "static_blend", "atrous_denoise", "upscale2x",
+              "present")
     assert kernels.launch_counts() == {k: int(k not in unused) for k in kernels.LAUNCHES}
 
     hf, w = heightfield.generate_heightfield_plain(pos)
@@ -349,3 +355,105 @@ def test_accumulate_kernel_and_render_accumulate_on_gpu(cuda_device, render_scen
     counts = kernels.launch_counts()
     assert counts["render_sample"] == 1 and counts["accumulate"] == 1
     assert sum(counts.values()) == 2
+
+
+# -- the engine's frame path ------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_update_chunks_kernel_matches_plain_on_gpu(cuda_device, render_scene):
+    """K10u on a 6x6-chunk scene made of the featured 2x2 area: a 3x3 bucket with one
+    chunk masked, a removal (all masked) and a 1x2 edge bucket, each bit for bit against
+    the plain version, in place, one count each."""
+    _, _, blocks = render_scene
+    tiled = blocks.repeat(3, 3, 1, 1, 1)
+    scene = brickmap.build_scene(tiled, -3, -3)
+    slot_table = blocks.reshape(4, 16, 16, 384).contiguous()
+    one_air = [True] * 4 + [False] + [True] * 4
+    for gz, gx, z0, x0, slots, mask in ((3, 3, 16, 32, [0, 1, 2, 3, 0, 1, 2, 3, 0], one_air),
+                                        (2, 2, 48, 48, [0, 1, 2, 3], [False] * 4),
+                                        (1, 2, 80, 64, [3, 2], [True, True])):
+        want = brickmap.update_chunks_plain(scene, slot_table, slots, mask, gz, gx, z0, x0)
+        before = scene.flat.clone()
+        kernels.reset_launch_counts()
+        out = brickmap.update_chunks(scene, slot_table, slots, mask, gz, gx, z0, x0)
+        assert kernels.launch_counts()["update_chunks"] == 1
+        assert out.flat.data_ptr() == scene.flat.data_ptr()
+        assert torch.equal(out.flat, want), (gz, gx, z0, x0)
+        assert int((out.flat != before).sum()) > 1000
+        scene = out
+
+
+def _frame_inputs(device, h=45, w=80, seed=3):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *shape: torch.rand(shape, generator=g).to(device)  # noqa: E731
+    color = r(h, w, 3) * torch.where(r(h, w, 1) < 0.1, 20.0, 1.0)
+    normal = torch.nn.functional.normalize(r(h, w, 3) - 0.5, dim=-1)
+    return color, r(h, w, 3), normal, torch.floor(r(h, w) * 70.0)
+
+
+@pytest.mark.cuda
+def test_temporal_blend_kernels_match_plain_on_gpu(cuda_device, render_scene):
+    """K13 after a moved camera and K13s under a static one, on samples of the scene,
+    every buffer bit for bit; one launch each per entry point."""
+    scene, player, _ = render_scene
+    h, w = 90, 160
+    params = sky.sky_params(1.0, 0.0, device=cuda_device)
+    cam0 = player.camera_params(w, h, device=cuda_device)
+    moved = camera.Player(pos=player.pos + np.array([0.5, 0.2, 2.0], np.float32), theta=player.theta + 0.03,
+                          phi=player.phi)
+    cam1 = moved.camera_params(w, h, device=cuda_device)
+    fbs = tracer.init_framebuffers(h, w, device=cuda_device, temporal=True)
+    kernels.reset_launch_counts()
+    fbs = reproject.render_accumulate_static(fbs, scene, cam0, params, h, w, 0)
+    fbs = reproject.render_accumulate_static(fbs, scene, cam0, params, h, w, 1)
+    c, a, n, d = tracer.render_sample(scene, cam1, params, h, w, 2, want_depth=True)
+    got = reproject.accumulate_temporal(fbs, cam0, cam1, c, a, n, d)
+    counts = kernels.launch_counts()
+    assert (counts["static_blend"], counts["reproject"], counts["render_sample"]) == (2, 1, 3)
+    want = reproject.temporal_blend(fbs, cam0, cam1, c, a, n, d)
+    for name, x, y in zip(got._fields, got, want):
+        assert torch.equal(x, y), name
+    assert 0.3 < float((got.nsamp > 1.0).double().mean()) < 1.0
+    got_s = reproject.accumulate_static(fbs, c, a, n, d)
+    want_s = reproject.static_blend(fbs, c, a, n, d)
+    for name, x, y in zip(got_s._fields, got_s, want_s):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_present_path_kernels_match_plain_on_gpu(cuda_device):
+    """K14 with and without nsamp (odd-sized frame, taps wrapping), K15 and K16, bit for
+    bit; K15 also against torch's bilinear interpolate (within 1e-6)."""
+    color, albedo, normal, nsamp = _frame_inputs(cuda_device, 45, 77)
+    for ns in (nsamp, None):
+        kernels.reset_launch_counts()
+        got = denoise.atrous_denoise(color, albedo, normal, nsamp=ns)
+        assert kernels.launch_counts()["atrous_denoise"] == 1
+        assert torch.equal(got, denoise.atrous_denoise_plain(color, albedo, normal, nsamp=ns))
+    up = denoise.upscale2x(color)
+    assert torch.equal(up, denoise.upscale2x_plain(color))
+    lib = torch.nn.functional.interpolate(color.permute(2, 0, 1)[None], scale_factor=2, mode="bilinear",
+                                          align_corners=False)[0].permute(1, 2, 0)
+    assert float(((up - lib).abs() / lib.abs().clamp(min=1e-6)).max()) <= 1e-6
+    hdr = torch.cat([color.reshape(-1), torch.linspace(0.0, 50.0, 30000, device=cuda_device)]).reshape(-1, 1, 3)
+    assert torch.equal(tonemap.present(hdr), tonemap.present_plain(hdr))
+
+
+@pytest.mark.cuda
+def test_engine_tick_and_present_on_gpu(cuda_device):
+    """Engine ticks on the card (a radius-0 spiral: no chunk becomes drawable, so no scene
+    update) through K11 and K13s / K13, then present through K14, K15 and K16."""
+    from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
+
+    eng = Engine(EngineConfig(width=128, height=72, view_chunks=3, gen_radius=0, capacity=64,
+                              use_upscaling=True))
+    kernels.reset_launch_counts()
+    eng.tick(1.0 / 30.0)
+    eng.tick(1.0 / 30.0, move=(0.0, 0.0, 2.0))
+    img = eng.present()
+    counts = kernels.launch_counts()
+    assert img.shape == (72, 128, 3) and img.dtype == np.uint8
+    for name, want in (("render_sample", 2), ("static_blend", 1), ("reproject", 1), ("atrous_denoise", 1),
+                       ("upscale2x", 1), ("present", 1)):
+        assert counts[name] == want, (name, counts)
