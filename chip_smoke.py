@@ -71,18 +71,35 @@ Phases, each of which raises (non-zero exit) on failure:
      each) and one present (one K14, K15, K16), timed; the presented [1080, 1920, 3] u8
      frame equal to the plain denoise -> upscale -> present chain on the same buffers; the
      same run on a second engine under torch.profiler for the idle share and the device
-     time by stage.
+     time by stage;
+ 15. K17 (``render_debug``) with the counts reset around one call (one K17 launch, nothing
+     else), then against ``render_debug_plain`` bit for bit at 1920x1080, DDA step counts
+     equal, on phase 10's 10x10 scene and camera and on the featured 33x33 scene (day
+     with no tint, the chunk and the zone tint; night), and on the 10x10 scene with
+     glowstone at voxels the camera sees (its bright pass, printed, not empty); timed
+     warm (kernel and plain in turns, the 33x33 frame, the library's bloom: 10 x
+     ``F.pad(circular)`` + ``F.conv2d``) with its bound; its device time split between the
+     shading and the blur launches under torch.profiler;
+ 16. the entry points: ``generate_demo.main(["--device", "cuda", "--render", ...])`` at its
+     defaults (5x5 chunks, 640x360, 8 samples) with the counts reset around it (K10 1, K11
+     8, K12 8, K14 1, K16 1), its PPM decoded to 640x360x3; ``viewer.routed_tick`` on
+     phase 14's second engine under a scripted input (w + shift held, the arrows, the
+     events p [ ] k f), the presented frame through ``encode_png`` and back equal; the
+     mesher on the 5x5 area's chunk (0, 0), ``native.available()`` printed, the native
+     face scan's mesh equal to the numpy scan's.
 On the card, kernel and plain version run the same libm, so integer outputs must be
 equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5 (the frame
 path's kernels: equal).
 The second-to-last line is the kernels' JSON record (launch counts of the featured 5x5
 run for the area kernels, of the reference drain for K9, K2s and K7s, of the render run
-for K10-K12 and of the fly-through's upload, ticks and present for K10u and K13-K16; max
+for K10-K12, of the fly-through's upload, ticks and present for K10u and K13-K16 and of
+one ``render_debug`` for K17; max
 |diff| over all checks; times and bounds at the 5x5 shapes, of K9 on the eroded area's
 grid, of K2s and K7s at the reference drain's largest batches, of K10-K12 on the 10x10
-bench scene at 1080p, of K10u per 33x33 bucket and of K13-K16 at the fly-through's
-shapes; library times: K2s's gather as one indexing call, K15's ``F.interpolate``), the
-last the device record.
+bench scene at 1080p, of K10u per 33x33 bucket, of K13-K16 at the fly-through's
+shapes and of K17 on the 10x10 scene at 1080p by day; library times: K2s's gather as one
+indexing call, K15's ``F.interpolate``, K17's bloom as pad + conv2d), the last the device
+record.
 ``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas -v).
 
 A kernel's bound is the least time the card could take for the same work: the larger of
@@ -102,7 +119,11 @@ window's words read and written, the region's blocks, the whole fine field read 
 macro words written by the macro pass, and K10's operations per window voxel and macro
 cell; K13 / K13s 32 floats a pixel (history and sample read, new history written); K14
 its colour read and written per iteration and the guides once, and ~45 operations per tap
-(25 taps, 4 iterations); K15 and K16 their input and output once.
+(25 taps, 4 iterations); K15 and K16 their input and output once; K17 its frame written
+once and the field words its DDA steps read, and 140 operations per DDA step taken (the
+steps the plain version counts on the same rays) plus 60 a ray (a primary and eight fog
+rays a pixel, a shadow ray a hit), ~500 a pixel of fog and shading, 150 a hit, 500 a
+miss's sky, the cloud march of the misses that look up and 54 a pixel per blur pass (ten).
 """
 
 from __future__ import annotations
@@ -166,6 +187,8 @@ KERNELS = {  # name -> (source, the JAX program it replaces)
                   "mega_minecraft_tpu/render/denoise.py:112"),
     "present": ("mega_minecraft_tpu_torch/csrc/present.cu",
                 "mega_minecraft_tpu/render/tonemap.py:22"),
+    "render_debug": ("mega_minecraft_tpu_torch/csrc/debug.cu",
+                     "mega_minecraft_tpu/render/debug_renderer.py:58"),
 }
 #: the engine's frame path (Engine.tick -> Engine.present)
 FRAME_KERNELS = ("update_chunks", "reproject", "static_blend", "atrous_denoise", "upscale2x", "present")
@@ -1026,7 +1049,8 @@ def alpha_cutout_checks(scene0, blocks, rays, med, params):
 
 
 def render_phases(dev, stamp, err, smi):
-    """Phases 10-12.  Returns (launches, times, bounds) of the render kernels."""
+    """Phases 10-12.  Returns (launches, times, bounds) of the render kernels, and the
+    10x10 and 33x33 scenes with the 1080p camera and the day and night skies (phase 15)."""
     from mega_minecraft_tpu_torch import kernels
     from mega_minecraft_tpu_torch.render import brickmap, camera, sky, tracer
     from mega_minecraft_tpu_torch.terrain import pipeline
@@ -1162,9 +1186,10 @@ def render_phases(dev, stamp, err, smi):
               f"of it), plain {pl_ms:.3f} ms ({pl_ms / k_ms:.1f}x), launches {launches[name]}")
     b33 = bounds[("render_sample", "33x33")]
     print(f"  K11 33x33 1080p bound {b33[0]:.4g} ms by {b33[1]}; frame {times[('frame', '33x33', 1080)]:.3f} ms")
-    del scene33, vol33, blocks33
+    del vol33, blocks33
     torch.cuda.empty_cache()
-    return launches, times, bounds
+    scenes = {"scene10": scene10, "scene33": scene33, "blocks10": blocks10, "cam": cam, "day": day, "night": night}
+    return launches, times, bounds, scenes
 
 
 # -- the engine's frame path (phases 13-14) -------------------------------------------------
@@ -1309,7 +1334,7 @@ def flythrough_phase(dev, stamp, smi):
     timed; the presented frame against the plain present chain on the same buffers; the
     same run again on a second engine with the 30 ticks and the present under
     torch.profiler, for the device's idle share and the split by stage.  Returns the launch
-    counts of the upload, the 30 ticks and the present."""
+    counts of the upload, the 30 ticks and the present, and the second engine (phase 16)."""
     from mega_minecraft_tpu_torch import kernels
     from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
     from mega_minecraft_tpu_torch.render import denoise, tonemap
@@ -1408,9 +1433,312 @@ def flythrough_phase(dev, stamp, smi):
                                     for k, v in sorted(by_stage.items(), key=lambda kv: -kv[1])))
     else:
         print("  traced fly-through: the profiler recorded no device events; idle share: not measured")
-    del eng, prof
-    torch.cuda.empty_cache()
-    return launches
+    del prof
+    return launches, eng
+
+
+# -- the debug renderer and the entry points (phases 15-16) ------------------------------
+#: f32 operations of K17 per pixel besides its DDA steps: the camera ray, eight fog
+#: samples (position, expf, the in-scatter sum), the fog amount and its horizon sky
+#: (sky_color without clouds or stars), the blend and the bright pass; per hit the
+#: material, the tint's three sin hashes and the Lambert terms; per miss the sky with
+#: stars (plus the cloud march, CLOUD_OPS, where dy >= 0.04); per pixel and blur pass 9
+#: taps of 3 channels, a multiply and an add each
+DEBUG_FRAME = (1080, 1920)  # K17's frame (height, width)
+DEMO_FRAME = (360, 640)  # generate_demo --render's default frame
+DEBUG_PIXEL_OPS = 500
+DEBUG_HIT_OPS = 150
+DEBUG_SKY_OPS = 500
+BLUR_PASS_OPS = 2 * 9 * 3
+
+
+def glow_scene(scene10, blocks10, cam, dev):
+    """The 10x10 bench scene with glowstone at the voxels that the 1080p camera's primary
+    rays hit in a grid of 16x16-pixel patches (one in four across and down): emissive
+    blocks in view, which the debug renderer lights past its bloom threshold."""
+    from mega_minecraft_tpu_torch.render import brickmap, camera, tracer
+    from mega_minecraft_tpu_torch.world.blocks import Block
+
+    H, W = DEBUG_FRAME
+    z = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    d = camera.pixel_rays(cam, W, H, (z, z))
+    o = [cam.position[k].expand(H, W).contiguous() for k in range(3)]
+    res = tracer.trace(scene10, *o, *d, torch.zeros((H, W), dtype=torch.uint8, device=dev))
+    iy, ix = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev), indexing="ij")
+    cell = max(1, H // 64)  # 16 pixels at 1080p
+    pick = res.hit & ((ix // cell) % 4 == 0) & ((iy // cell) % 4 == 0)
+    n = (res.nx, res.ny, res.nz)
+    v = [torch.floor(o[k] + d[k] * res.t - n[k] * 0.5)[pick].long() - scene10.origin[k] for k in range(3)]
+    vol = brickmap.scene_volume(blocks10).clone()
+    vol[v[2], v[0], v[1]] = int(Block.GLOWSTONE)
+    cz, cx = blocks10.shape[:2]
+    chunks = vol.reshape(cz, 16, cx, 16, vol.shape[2]).permute(0, 2, 1, 3, 4).contiguous()
+    return brickmap.build_scene(chunks, -5, -5), int(pick.sum())
+
+
+def k17_counts(scene, cam, dev, steps, H, W):
+    """(bytes, operations) of one K17 frame: the frame written once and the field words
+    its DDA steps read (at most the field); the steps' and rays' operations (the primary
+    and eight fog rays a pixel, the shadow ray of each hit), the per-pixel, per-hit and
+    per-miss arithmetic, the cloud march of the misses that look up, the ten blur passes."""
+    from mega_minecraft_tpu_torch.render import camera, tracer
+
+    z = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    d = camera.pixel_rays(cam, W, H, (z, z))
+    o = [cam.position[k].expand(H, W).contiguous() for k in range(3)]
+    res = tracer.trace(scene, *o, *d, torch.zeros((H, W), dtype=torch.uint8, device=dev))
+    hits = int(res.hit.sum())
+    clouds = int((~res.hit & (d[1] >= 0.04)).sum())
+    n_px, n_steps = H * W, int(steps.sum())
+    rays = 9 * n_px + hits
+    ops = (n_steps * DDA_STEP_OPS + rays * DDA_RAY_OPS + n_px * (DEBUG_PIXEL_OPS + 10 * BLUR_PASS_OPS)
+           + hits * DEBUG_HIT_OPS + (n_px - hits) * DEBUG_SKY_OPS + clouds * CLOUD_OPS)
+    return n_px * 3 * 4 + min(n_steps, scene.flat.numel()) * 4 + 30 * 4, ops, hits, clouds
+
+
+def library_bloom(bright):
+    """The bloom half as PyTorch calls: per stride 1-16 a horizontal and a vertical
+    ``F.pad(mode="circular")`` + depthwise ``F.conv2d`` with the 9-tap weights, on
+    [1, 3, H, W] (the yardstick of the Library column; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from mega_minecraft_tpu_torch.render import debug_renderer as dr
+
+    w = dr.BLOOM_WEIGHTS
+    taps = torch.tensor([w[4], w[3], w[2], w[1], w[0], w[1], w[2], w[3], w[4]], dtype=torch.float32,
+                        device=bright.device)
+    kh = taps.view(1, 1, 1, 9).expand(3, 1, 1, 9).contiguous()
+    kv = taps.view(1, 1, 9, 1).expand(3, 1, 9, 1).contiguous()
+    x = bright
+    for p in range(dr.BLOOM_PASSES):
+        s = 1 << p
+        x = F.conv2d(F.pad(x, (4 * s, 4 * s, 0, 0), mode="circular"), kh, dilation=(1, s), groups=3)
+        x = F.conv2d(F.pad(x, (0, 0, 4 * s, 4 * s), mode="circular"), kv, dilation=(s, 1), groups=3)
+    return x
+
+
+def debug_phase(dev, stamp, err, smi, sc):
+    """Phase 15: K17 against render_debug_plain bit for bit at 1920x1080 (with the same
+    DDA step counts) on the 10x10 bench scene and the featured 33x33 scene, by day with
+    no tint, the chunk and the zone tint, and at night, and on the 10x10 scene with
+    glowstone in view (the bright pass not empty); one launch count for one call; timed
+    warm with CUDA events (kernel, plain version, and the library's bloom); the split of
+    the kernel's device time between its shading and its blur launches (torch.profiler).
+    Returns ((launches, (ms, plain ms), (bound ms, by)), library ms)."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.render import debug_renderer as dr
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cuda import bright_pass_recorder
+
+    stamp("phase 15: K17 (render_debug) against its plain version at 1920x1080: both scenes, day with "
+          "every tint, night, and glowstone in view")
+    H, W = DEBUG_FRAME
+    cam, day, night = sc["cam"], sc["day"], sc["night"]
+    scene_glow, n_glow = glow_scene(sc["scene10"], sc["blocks10"], cam, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frame = dr.render_debug(sc["scene10"], cam, day, H, W)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"  launch counts of one render_debug: {launches}")
+    for name, count in launches.items():
+        check(count == int(name == "render_debug"), f"kernel {name}: {count} launches in one render_debug")
+    check(tuple(frame.shape) == (H, W, 3) and bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
+          "the debug frame is not finite and non-negative")
+    cases = [(f"{tag} {sky_name} tint={tint}", scene, params, tint)
+             for tag, scene in (("10x10", sc["scene10"]), ("33x33", sc["scene33"]))
+             for sky_name, params, tints in (("day", day, ("none", "chunk", "zone")), ("night", night, ("none",)))
+             for tint in tints]
+    cases.append((f"10x10 glowstone ({n_glow} pixels' voxels) day tint=none", scene_glow, day, "none"))
+    e, steps = 0.0, {}
+    for tag, scene, params, tint in cases:
+        got, gst = kernels.render_debug(scene, cam, params, H, W, dr.TINT_CELLS[tint], want_steps=True)
+        with bright_pass_recorder() as bright:
+            want, wst = dr.render_debug_plain(scene, cam, params, H, W, tint, want_steps=True)
+        check(bool(torch.isfinite(got).all()), f"K17 {tag}: non-finite values")
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        mx = float((got.double() - want.double()).abs().max())
+        n_bright = int(bright[0].sum())
+        print(f"  K17 {tag}: {n_diff} of {got.numel()} values differ (max |diff| {mx:g}); DDA steps equal: "
+              f"{torch.equal(gst, wst)}, {int(wst.sum())} in all, {float(wst.double().mean()):.2f} a pixel; "
+              f"bright pass {n_bright} pixels; mean {got.mean(dim=(0, 1)).tolist()}")
+        check(n_diff == 0, f"K17 {tag}: {n_diff} values differ from the plain version")
+        check(torch.equal(gst, wst), f"K17 {tag}: DDA step counts differ from the plain version")
+        if tag == "10x10 day tint=none":
+            check(torch.equal(frame, got), "K17: the counted render_debug call differs from the compared launch")
+        if "glowstone" in tag:
+            check(n_bright > 0, f"K17 {tag}: the bright pass is empty")
+            bright_img = torch.where(bright[0][..., None], want, 0.0)
+        e = max(e, mx)
+        steps[tag] = wst
+    err["render_debug"] = e
+
+    tag10 = "10x10 day tint=none"
+    k_ms, p_ms = [], []
+    for _ in range(2):  # turns: plain, kernel, kernel, plain
+        p_ms.append(cuda_ms(lambda: dr.render_debug_plain(sc["scene10"], cam, day, H, W), 1))
+        k_ms.append(cuda_ms(lambda: dr.render_debug(sc["scene10"], cam, day, H, W), 10))
+    k33 = cuda_ms(lambda: dr.render_debug(sc["scene33"], cam, day, H, W), 10)
+    x = bright_img.permute(2, 0, 1)[None].contiguous()
+    lib = library_bloom(x)[0].permute(1, 2, 0)
+    blur = bright_img
+    for p in range(dr.BLOOM_PASSES):
+        blur = dr._gauss_blur(blur, 1 << p)
+    rel = float((lib - blur).abs().max() / blur.abs().max())
+    check(rel <= 1e-5, f"the library bloom differs from the plain blur by {rel} of its largest value")
+    lib_ms = cuda_ms(lambda: library_bloom(x), 10)
+    nb, ops, hits, clouds = k17_counts(sc["scene10"], cam, dev, steps[tag10], H, W)
+    b_ms, b_by = bound(nb, ops)
+    b33 = bound(*k17_counts(sc["scene33"], cam, dev, steps["33x33 day tint=none"], H, W)[:2])
+    kernel_ms, plain_ms = sum(k_ms) / 2, sum(p_ms) / 2
+    print(f"  K17 on {smi}, {W}x{H} day: 10x10 {k_ms[0]:.3f} / {k_ms[1]:.3f} ms (plain {p_ms[0]:.1f} / "
+          f"{p_ms[1]:.1f} ms), bound {b_ms:.4g} ms by {b_by} ({b_ms / kernel_ms:.1%} of it; {hits} hits, "
+          f"{clouds} cloud marches, {ops:.4g} operations, {nb} bytes); 33x33 {k33:.3f} ms, bound "
+          f"{b33[0]:.4g} ms by {b33[1]}; the library's bloom (10 x F.pad + F.conv2d) {lib_ms:.4f} ms, within "
+          f"{rel:.2g} of the largest value of the plain blur")
+
+    # the profiler misses the first launches it traces: trace one call more than counted
+    # and read the last ``reps`` calls' launches
+    reps = 5
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 1):
+            dr.render_debug(sc["scene10"], cam, day, H, W)
+        torch.cuda.synchronize()
+    spans = {"debug_shade_kernel": [], "blur_kernel": []}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for k in spans:
+                if k in ev.name:
+                    spans[k].append((ev.time_range.start, ev.time_range.end))
+    want = {"debug_shade_kernel": reps, "blur_kernel": 10 * reps}
+    if all(len(spans[k]) >= n for k, n in want.items()):
+        ms = {k: sum(e - a for a, e in sorted(spans[k])[-n:]) / 1e3 / reps for k, n in want.items()}
+        print(f"  K17's device ms by launch (the last {reps} of {reps + 1} traced 10x10 day frames, per frame): "
+              f"shading {ms['debug_shade_kernel']:.4f}, bloom (10 blur launches) {ms['blur_kernel']:.4f}")
+    else:
+        print(f"  K17 traced: the profiler recorded { {k: len(v) for k, v in spans.items()} } launches of "
+              f"{reps + 1} frames; the split: not measured")
+    del scene_glow
+    return (launches["render_debug"], (kernel_ms, plain_ms), (b_ms, b_by)), lib_ms
+
+
+def decode_png(data):
+    """[H, W, 3] u8 of an RGB8 PNG with filter-0 scanlines (what viewer.encode_png writes)."""
+    import struct
+    import zlib
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "a scanline filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def entry_points_phase(dev, stamp, smi, eng):
+    """Phase 16: ``generate_demo.main(["--device", "cuda", "--render", ...])`` at its
+    defaults (5x5 chunks, 640x360, 8 samples) with the counts reset around it (K10 1,
+    K11 8, K12 8, K14 1, K16 1) and its file decoded; the viewer's ``routed_tick`` on phase
+    14's engine under a scripted input (held w + shift, the arrows, the events p [ ] k f),
+    then ``encode_png`` of the presented frame decoded again and held equal to it; the
+    mesher on the middle chunk of the demo's 5x5 area, native against numpy."""
+    from mega_minecraft_tpu_torch import kernels, native
+    from mega_minecraft_tpu_torch.app import generate_demo, viewer
+    from mega_minecraft_tpu_torch.render import meshing
+    from mega_minecraft_tpu_torch.terrain import pipeline
+
+    stamp("phase 16: the entry points: generate_demo --render on the card, the viewer's routed tick on the "
+          "fly-through's engine, the mesher")
+    path = ROOT / "build" / "chip_smoke" / "demo.ppm"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = generate_demo.main(["--device", "cuda", "--render", str(path)])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"  generate_demo --render: rc {rc} in {demo_s:.3f} s on {smi}; launches {launches}")
+    check(rc == 0, f"generate_demo returned {rc}")
+    for name, want in (("scene_fields", 1), ("render_sample", 8), ("accumulate", 8), ("atrous_denoise", 1),
+                       ("present", 1)):
+        check(launches[name] == want, f"generate_demo --render: {launches[name]} {name} launches, not {want}")
+    data = path.read_bytes()
+    h, w = DEMO_FRAME
+    head = b"P6\n%d %d\n255\n" % (w, h)
+    check(data[:len(head)] == head and len(data) == len(head) + w * h * 3,
+          f"{path.name}: not a {w}x{h} binary PPM ({data[:16]!r}, {len(data)} bytes)")
+    img = np.frombuffer(data[len(head):], np.uint8).reshape(h, w, 3)
+    print(f"  {path.name}: {w}x{h}x3, min / max / mean {img.min()} / {img.max()} / {img.mean():.3f}")
+    check(img.std() > 5.0, "the demo's frame is flat")
+
+    state, logs = viewer.InputState(), []
+    script = [{"held": ["w", "shift"]}, {"held": ["w", "shift"]}, {"held": ["arrowleft", "arrowup"]},
+              {"held": ["arrowright", "arrowdown"], "dtheta": 0.05}, {"held": [], "events": ["p", "[", "]", "k", "f"]}]
+    pos0, theta0 = eng.player.pos.copy(), eng.player.theta
+    paused0, freecam0, sun0 = eng.time_paused, eng.freecam, eng.sun_time
+    dt = 1.0 / 30.0
+    kernels.reset_launch_counts()
+    for msg in script:
+        state.update(msg)
+        viewer.routed_tick(eng, state, dt, log=logs.append)
+    frame = eng.present()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    moved = float(eng.player.pos[2] - pos0[2])
+    print(f"  viewer.routed_tick x {len(script)}: moved {moved:.4f} blocks along z, theta {theta0:.3f} -> "
+          f"{eng.player.theta:.3f}, paused {paused0} -> {eng.time_paused}, freecam {freecam0} -> "
+          f"{eng.freecam}, sun_time {sun0:.4f} -> {eng.sun_time:.4f}; log {logs}; launches {launches}")
+    check(abs(moved - 2 * 10.0 * 8.0 * dt) < 1e-3, f"w + shift moved the player {moved} blocks")
+    check(abs(eng.player.theta - (theta0 + 0.05)) < 1e-6, "the arrows and the mouse did not rotate as routed")
+    check(eng.time_paused != paused0 and eng.freecam != freecam0, "the p / f events were not routed")
+    check(any("player position" in str(m) for m in logs), "the k event logged no position")
+    check(launches["render_sample"] == len(script), f"{launches['render_sample']} K11 launches in "
+          f"{len(script)} routed ticks")
+    png = viewer.encode_png(frame)
+    back = decode_png(png)
+    check(back.shape == frame.shape and np.array_equal(back, frame), "encode_png does not round-trip")
+    print(f"  encode_png of the {frame.shape[1]}x{frame.shape[0]} presented frame: {len(png)} bytes, decoded "
+          f"equal; mean {frame.mean():.2f}")
+
+    area = pipeline.generate_area(-2, -2, 5, 5, device=dev)["blocks"].cpu().numpy()
+    blocks = area[2, 2]
+    nbs = {(1, 0): area[2, 3], (-1, 0): area[2, 1], (0, 1): area[3, 2], (0, -1): area[1, 2]}
+    have_native = native.available()
+    t0 = time.perf_counter()
+    mesh = meshing.mesh_chunk(blocks, nbs, (0, 0))
+    mesh_s = time.perf_counter() - t0
+    faces = native.extract_faces(blocks, nbs)
+    extract = native.extract_faces
+    try:
+        native.extract_faces = lambda b, n: None
+        plain = meshing.mesh_chunk(blocks, nbs, (0, 0))
+    finally:
+        native.extract_faces = extract
+
+    def rows(m):
+        k = len(m["positions"]) // 4 * 4
+        r = np.concatenate([m["positions"][:k].reshape(-1, 12), m["normals"][:k].reshape(-1, 12),
+                            m["uvs"][:k].reshape(-1, 8), m["mats"][:k].reshape(-1, 4).astype(np.float32)], axis=1)
+        return r[np.lexsort(r.T[::-1])]
+
+    same = all(len(mesh[k]) == len(plain[k]) for k in mesh) and np.array_equal(rows(mesh), rows(plain))
+    n_faces = len(mesh["indices"]) // 6
+    print(f"  mesher on chunk (0, 0) of the 5x5 area: native available {have_native} "
+          f"({None if faces is None else len(faces[1])} faces from the native scan), {n_faces} quads, "
+          f"{len(mesh['positions'])} vertices in {mesh_s:.3f} s; native path equal to the numpy path: {same}")
+    check(n_faces > 0 and same, "the mesher's native and numpy paths differ")
 
 
 def main(argv):
@@ -1829,12 +2157,20 @@ def main(argv):
     stream_launches = reference_phase(dev, stamp, err, stream_times, stream_bounds, smi)
 
     # -- 10-12. the render path --------------------------------------------------------------
-    render_launches, render_times, render_bounds = render_phases(dev, stamp, err, smi)
+    render_launches, render_times, render_bounds, render_scenes = render_phases(dev, stamp, err, smi)
 
     # -- 13-14. the engine's frame path ------------------------------------------------------
     frame_times, frame_bounds, library = frame_kernel_phase(dev, stamp, err, smi)
     library["layers_slots"] = stream_times.pop(("library", "layers_slots"))
-    frame_launches = flythrough_phase(dev, stamp, smi)
+    frame_launches, engine = flythrough_phase(dev, stamp, smi)
+
+    # -- 15. the debug renderer; 16. the entry points ---------------------------------------
+    debug_row, library["render_debug"] = debug_phase(dev, stamp, err, smi, render_scenes)
+    del render_scenes
+    torch.cuda.empty_cache()
+    entry_points_phase(dev, stamp, smi, engine)
+    del engine
+    torch.cuda.empty_cache()
 
     # launches: the area kernels' from the featured 5x5 run, the streaming kernels' from the
     # reference workload's drain; times and bounds at the shapes of those paths
@@ -1845,6 +2181,8 @@ def main(argv):
             return (render_launches[name], render_times[name], render_bounds[name])
         if name in FRAME_KERNELS:
             return (frame_launches[name], frame_times[name], frame_bounds[name])
+        if name == "render_debug":
+            return debug_row
         return (stream_launches[name], stream_times[name], stream_bounds[name])
 
     report = {"kernels": []}

@@ -4,9 +4,9 @@ The port's own copy of the part of ``mega_minecraft_tpu/config.py`` that the por
 (stdlib only), so that the port imports nothing of the JAX package: the streaming
 scheduler's budget (read by ``terrain/scheduler.py``), the path tracer's settings
 (read by ``render/tracer.py``) and the engine's frame size, post-processing switches and
-slot-table settings (read by ``app/engine.py`` ``EngineConfig.from_config``).  Fields keep their names, defaults and
-``MMTPU_<SECTION>_<FIELD>`` environment overrides; later slices add the sections they
-read.
+slot-table settings (read by ``app/engine.py`` ``EngineConfig.from_config``).  Fields keep
+their names, defaults and ``MMTPU_<SECTION>_<FIELD>`` environment overrides; later slices
+add the sections they read (the JAX ``DebugConfig`` is left out: no code reads it).
 """
 
 from __future__ import annotations

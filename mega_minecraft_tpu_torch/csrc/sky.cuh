@@ -1,6 +1,7 @@
 // The procedural sky as device functions: CUDA twin of mega_minecraft_tpu_torch/render/
 // sky.py, which ports mega_minecraft_tpu/render/sky.py:25-338 (the reference's
-// getSkyColor, basic_shaders.cu:436-556).  Inlined into K11 (csrc/tracer.cu).
+// getSkyColor, basic_shaders.cu:436-556).  Inlined into K11 (csrc/tracer.cu) and K17
+// (csrc/debug.cu).
 //
 // Operation order follows the JAX original; f32 constant products are folded as numpy
 // folds them (F(a) * F(b) in f32); libm sinf / cosf / acosf / powf, as torch calls them.
@@ -61,6 +62,13 @@ MMT_FN float linearstep(float e0, float e1, float x) { return clamp01((x - e0) /
 
 MMT_FN float sin_hash_r(float d) { return fract(sinf(d) * F(58293.492)); }
 
+// the renderer's vec3 sin hash (render/sky.py _rand3_from3_r)
+MMT_FN void rand3_from3_r(float x, float y, float z, float* r) {
+  r[0] = sin_hash_r(x * F(185.3) + y * F(563.9) + z * F(887.2));
+  r[1] = sin_hash_r(x * F(593.1) + y * F(591.2) + z * F(402.1));
+  r[2] = sin_hash_r(x * F(938.2) + y * F(723.4) + z * F(768.9));
+}
+
 MMT_FN float clouds_noise(float cx, float cy, float cz, float time) {
   float n1 = pnoise(cx - F(962.43), cy - F(962.43), cz - F(962.43)) * F(0.01);
   float n2 = pnoise(cx * F(254.32), cy * F(254.32), cz * F(254.32)) * F(0.01);
@@ -98,10 +106,9 @@ MMT_FN float star_pal(float r, float c0, float c1, float c2, float c3, float c4)
 MMT_FN void stars_color(float dx, float dy, float dz, float* c) {
   float ux = dx * 30.f, uy = dy * 30.f, uz = dz * 30.f;
   float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
-  float rx = sin_hash_r(ix * F(185.3) + iy * F(563.9) + iz * F(887.2));
-  float ry = sin_hash_r(ix * F(593.1) + iy * F(591.2) + iz * F(402.1));
-  float rz = sin_hash_r(ix * F(938.2) + iy * F(723.4) + iz * F(768.9));
-  float px = F(0.1) + F(0.9) * rx, py = F(0.1) + F(0.9) * ry, pz = F(0.1) + F(0.9) * rz;
+  float rr[3];
+  rand3_from3_r(ix, iy, iz, rr);
+  float px = F(0.1) + F(0.9) * rr[0], py = F(0.1) + F(0.9) * rr[1], pz = F(0.1) + F(0.9) * rr[2];
   float dxx = px - (ux - ix), dyy = py - (uy - iy), dzz = pz - (uz - iz);
   float dist = sqrtf(dxx * dxx + dyy * dyy + dzz * dzz);
   float rnd = sin_hash_r(px * F(185.3) + py * F(563.9) + pz * F(887.2));

@@ -1,7 +1,7 @@
 """Launch wrappers of the hand-written CUDA kernels (K1-K9, K2s, K7s and K7's stream
 pre-kernel; the render path's K10 scene fields, K11t trace, K11 render_sample and K12
 accumulate; the engine's frame path: K10u update_chunks, K13 reproject, K13s
-static_blend, K14 atrous_denoise, K15 upscale2x and K16 present).
+static_blend, K14 atrous_denoise, K15 upscale2x and K16 present; K17 render_debug).
 
 Each wrapper checks device, dtype, shape and contiguity of its inputs, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if the C
@@ -29,7 +29,8 @@ LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0, "placements": 
             "compact_placements": 0, "feature_streams": 0, "features": 0, "decorators": 0,
             "erosion": 0, "layers_slots": 0, "features_slots": 0, "scene_fields": 0,
             "trace": 0, "render_sample": 0, "accumulate": 0, "update_chunks": 0,
-            "reproject": 0, "static_blend": 0, "atrous_denoise": 0, "upscale2x": 0, "present": 0}
+            "reproject": 0, "static_blend": 0, "atrous_denoise": 0, "upscale2x": 0, "present": 0,
+            "render_debug": 0}
 
 N_BIOMES = bio.NUM_BIOMES
 N_MAT = bio.NUM_MATERIALS
@@ -542,6 +543,18 @@ def trace(scene, ox, oy, oz, dx, dy, dz, medium, max_steps: int, active=None, wa
     return (res, steps) if want_steps else res
 
 
+def _param_vec(dev, cam, params) -> torch.Tensor:
+    """The camera and sky parameters as the one f32 vector the tracer kernels read
+    (``csrc/trace.cuh`` frame_sky / camera_ray)."""
+    vec = [(cam.position, 3), (cam.forward, 3), (cam.right, 3), (cam.up, 3), (cam.pixel_length, 2),
+           (params.sun_dir, 3), (params.moon_dir, 3), (params.stars_rot, 9), (params.time, 1)]
+    for t, n in vec:
+        if t.device != dev or t.dtype != torch.float32 or t.numel() != n:
+            raise ValueError(f"camera / sky parameter: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {n} f32 on {dev}")
+    return torch.cat([t.reshape(-1) for t, _ in vec]).contiguous()
+
+
 def render_sample(scene, cam, params, height: int, width: int, frame_id: int, row0: int,
                   full_height: int, col0: int, full_width: int, exact: bool, want_steps: bool):
     """K11: one 1-spp sample of a tile -> (color, albedo, normal [H, W, 3] f32, depth
@@ -550,13 +563,7 @@ def render_sample(scene, cam, params, height: int, width: int, frame_id: int, ro
     from ..render.materials import kernel_tables
 
     dev = scene.flat.device
-    vec = [(cam.position, 3), (cam.forward, 3), (cam.right, 3), (cam.up, 3), (cam.pixel_length, 2),
-           (params.sun_dir, 3), (params.moon_dir, 3), (params.stars_rot, 9), (params.time, 1)]
-    for t, n in vec:
-        if t.device != dev or t.dtype != torch.float32 or t.numel() != n:
-            raise ValueError(f"camera / sky parameter: {t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"expected {n} f32 on {dev}")
-    pvec = torch.cat([t.reshape(-1) for t, _ in vec]).contiguous()
+    pvec = _param_vec(dev, cam, params)
     if not (0 <= row0 and row0 + height <= full_height and 0 <= col0 and col0 + width <= full_width):
         raise ValueError("the tile must lie inside the frame")
     tabs = kernel_tables(dev)
@@ -594,6 +601,33 @@ def accumulate(c_old, a_old, n_old, color, albedo, normal, frame_id: int):
             _launch("accumulate", _build.load().mmt_accumulate, _p(c_old), _p(a_old), _p(n_old),
                     _p(color), _p(albedo), _p(normal), color.numel(), fid, mult, *(_p(o) for o in outs))
     return outs
+
+
+class _DebugArgs(ctypes.Structure):
+    _fields_ = [("sc", _SceneArgs), ("params", ctypes.c_void_p)] + [
+        (k, ctypes.c_int) for k in ("height", "width", "max_steps", "tint_cell")] + [
+        (k, ctypes.c_void_p) for k in ("img", "bright", "tmp", "out", "steps")]
+
+
+def render_debug(scene, cam, params, height: int, width: int, tint_cell: int, want_steps: bool = False):
+    """K17: the debug renderer's frame -> ([H, W, 3] f32 linear HDR, [H, W] i32 DDA steps
+    of each pixel's traces or None).  ``tint_cell``: 0, 16 (chunk) or 192 (zone).  One
+    count per call; eleven launches (the shading, then ten blur passes)."""
+    from ..render.tracer import MAX_TRACE_STEPS
+
+    dev = scene.flat.device
+    if tint_cell not in (0, 16, 192):
+        raise ValueError(f"tint_cell must be 0, 16 or 192, not {tint_cell}")
+    pvec = _param_vec(dev, cam, params)
+    bufs = torch.empty((3, height, width, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    steps = torch.empty((height, width), dtype=torch.int32, device=dev) if want_steps else None
+    args = _DebugArgs(_scene_args(scene), _p(pvec), height, width, MAX_TRACE_STEPS, int(tint_cell), _p(bufs[0]),
+                      _p(bufs[1]), _p(bufs[2]), _p(out), None if steps is None else _p(steps))
+    if height and width:
+        with torch.cuda.device(dev):
+            _launch_struct("render_debug", _build.load().mmt_render_debug, args)
+    return out, steps
 
 
 # ---------------------------------------------------------------------------------------

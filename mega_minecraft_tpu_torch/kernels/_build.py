@@ -95,6 +95,8 @@ SIGNATURES = {
     "mmt_upscale2x": [_P, _I, _I, _P, _P],
     # hdr, count, out u8, stream
     "mmt_present": [_P, ctypes.c_longlong, _P, _P],
+    # &DebugArgs, stream
+    "mmt_render_debug": [_P, _P],
 }
 
 
@@ -187,11 +189,12 @@ def feature_tables_header() -> str:
 
 
 def render_tables_header() -> str:
-    """C tables of the render path (K10-K11, K10u): the scene encoding's constants, the solid
-    table, the packed block properties and the material-class scalars, made from the
-    numpy modules the plain versions read.  The alpha-flag and transparent-fraction
-    tables and the texel tables go to the kernels as device tensors."""
-    from ..render import brickmap, materials
+    """C tables of the render path (K10-K11, K10u, K17): the scene encoding's constants, the
+    solid table, the packed block properties, the material-class scalars and the debug
+    renderer's fog and bloom constants, made from the numpy modules the plain versions
+    read.  The alpha-flag and transparent-fraction tables and the texel tables go to the
+    kernels as device tensors."""
+    from ..render import brickmap, debug_renderer as dbg, materials
     from ..world.blocks import X_SHAPED_HI, X_SHAPED_LO
 
     lines = ["// generated by mega_minecraft_tpu_torch/kernels/_build.py; do not edit", "#pragma once"]
@@ -206,6 +209,10 @@ def render_tables_header() -> str:
     lines.append(_c_array("MAT_WAVY_TAB", np.asarray(materials.MAT_WAVY, np.uint8), "uint8_t"))
     lines.append(_c_array("MAT_ROUGHNESS_TAB", materials.MAT_ROUGHNESS))
     lines.append(_c_array("MAT_IOR_TAB", materials.MAT_IOR))
+    lines += [f"#define DEBUG_FOG_SAMPLES {int(dbg.FOG_SAMPLES)}", f"#define DEBUG_BLOOM_PASSES {int(dbg.BLOOM_PASSES)}"]
+    lines += [f"#define DEBUG_{k} {float(getattr(dbg, k))!r}"
+              for k in ("FOG_DENSITY", "BLOOM_THRESHOLD", "BLOOM_STRENGTH")]
+    lines.append(_c_array("DEBUG_BLOOM_WEIGHTS", np.asarray(dbg.BLOOM_WEIGHTS, np.float32)))
     return "\n".join(lines) + "\n"
 
 

@@ -79,3 +79,12 @@ def test_bool_words(raw, want):
     # the old parser, bool(raw), read every non-empty word, "0" and "false" too, as true
     assert bool(raw) is (raw != "")
     assert config._parse(bool, raw) is want
+
+
+
+def test_config_holds_only_the_sections_the_port_reads():
+    """The port copies a section of the JAX tree only once its code reads it: no
+    ``debug`` section (its tint flags and timers are read by no code, in JAX either)."""
+    assert [f.name for f in dataclasses.fields(config.Config)] == ["render", "terrain"]
+    assert {f.name for f in dataclasses.fields(jax_config.Config)} >= {"render", "terrain", "debug"}
+    assert not hasattr(config, "DebugConfig")

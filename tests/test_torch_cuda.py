@@ -16,7 +16,10 @@ and K12 per ``render_accumulate``.  The engine's frame path: K10u (``update_chun
 3x3 bucket into that scene, a removal and an edge bucket, bit for bit, in place), K13 and
 K13s (the blends after a moved and a static camera), K14 (with and without nsamp), K15 and
 K16, each bit for bit against its plain version on the card, and one engine tick /
-present on the card with its launch counts.
+present on the card with its launch counts.  The debug renderer: K17 against
+``render_debug_plain`` bit for bit (and its DDA step counts) on the box scene of
+``tests/test_render.py`` at 128x96, day with every tint, night, and with glowstone boxes
+whose bright pass is not empty, one launch count per call.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and skips
 without a card.  The file imports no JAX, so on a GPU machine without JAX it runs as
@@ -119,6 +122,44 @@ def aimed_player(targets: np.ndarray) -> camera.Player:
                          theta=0.0, phi=-math.atan2(12.0, 4.0))
 
 
+def box_volume(glow: bool = False) -> np.ndarray:
+    """``tests/test_render.py``'s box scene, [32, 32, 384] u8 ([z, x, y]): stone below
+    y = 96 and 20 seeded 3x3x4 boxes above; with ``glow`` every second box is glowstone,
+    which the debug renderer lights past its bloom threshold."""
+    rng = np.random.RandomState(0)
+    vol = np.zeros((32, 32, 384), np.uint8)
+    vol[:, :, :96] = int(Block.STONE)
+    for i in range(20):
+        z, x, y = rng.randint(0, 28), rng.randint(0, 28), rng.randint(96, 200)
+        vol[z : z + 3, x : x + 3, y : y + 4] = int(Block.GLOWSTONE if glow and i % 2 else Block.STONE)
+    return vol
+
+
+def box_chunks(vol: np.ndarray) -> np.ndarray:
+    """A [32, 32, 384] volume as the [2, 2, 16, 16, 384] chunk grid ``build_scene`` takes."""
+    return np.ascontiguousarray(vol.reshape(2, 16, 2, 16, 384).transpose(0, 2, 1, 3, 4))
+
+
+@contextlib.contextmanager
+def bright_pass_recorder():
+    """Record the bright pass of ``render_debug_plain`` calls (the first blur's input of
+    each frame) into the yielded list, as [H, W] bool masks of the pixels it keeps."""
+    from mega_minecraft_tpu_torch.render import debug_renderer
+
+    seen, blur = [], debug_renderer._gauss_blur
+
+    def recording(img, stride):
+        if stride == 1:
+            seen.append((img != 0).any(-1))
+        return blur(img, stride)
+
+    debug_renderer._gauss_blur = recording
+    try:
+        yield seen
+    finally:
+        debug_renderer._gauss_blur = blur
+
+
 def _pos_halo(device="cpu"):
     return pipeline.chunk_positions(ORIGIN_CHUNK[0] - 1, ORIGIN_CHUNK[1] - 1, 3, 3, device=device)
 
@@ -163,10 +204,10 @@ def test_featured_5x5_matches_plain_chain_on_gpu(cuda_device):
     kernels.reset_launch_counts()
     out = pipeline.generate_area_fused(pos, 5, 5, features=True)
     torch.cuda.synchronize()
-    # erosion, the scheduler's kernels, the render path's and the engine's frame path's
+    # erosion, the scheduler's kernels, the render path's, the engine's frame path's and K17
     unused = ("erosion", "layers_slots", "features_slots", "scene_fields", "trace", "render_sample",
               "accumulate", "update_chunks", "reproject", "static_blend", "atrous_denoise", "upscale2x",
-              "present")
+              "present", "render_debug")
     assert kernels.launch_counts() == {k: int(k not in unused) for k in kernels.LAUNCHES}
 
     hf, w = heightfield.generate_heightfield_plain(pos)
@@ -457,3 +498,31 @@ def test_engine_tick_and_present_on_gpu(cuda_device):
     for name, want in (("render_sample", 2), ("static_blend", 1), ("reproject", 1), ("atrous_denoise", 1),
                        ("upscale2x", 1), ("present", 1)):
         assert counts[name] == want, (name, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sun_time,tint,glow", [(1.0, "none", False), (1.0, "chunk", False), (1.0, "zone", False),
+                                                (4.0, "none", False), (1.0, "none", True), (4.0, "zone", True)],
+                         ids=["day", "day-chunk", "day-zone", "night", "emissive", "emissive-night-zone"])
+def test_render_debug_kernel_matches_plain_on_gpu(cuda_device, sun_time, tint, glow):
+    """K17 against render_debug_plain on the card, bit for bit (the box scene of
+    tests/test_render.py, 128x96), one launch count per call; the emissive cases'
+    bright pass is not empty."""
+    from mega_minecraft_tpu_torch.render import debug_renderer
+
+    scene = brickmap.build_scene(torch.from_numpy(box_chunks(box_volume(glow))).to(cuda_device), 0, 0)
+    cam = camera.Player(pos=np.array([16.0, 140.0, -8.0], np.float32), phi=-0.5).camera_params(
+        128, 96, device=cuda_device)
+    params = sky.sky_params(sun_time, 0.0, device=cuda_device)
+    kernels.reset_launch_counts()
+    got = debug_renderer.render_debug(scene, cam, params, 96, 128, tint)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["render_debug"] == 1
+    with bright_pass_recorder() as bright:
+        want, steps = debug_renderer.render_debug_plain(scene, cam, params, 96, 128, tint, want_steps=True)
+    _, ksteps = kernels.render_debug(scene, cam, params, 96, 128, debug_renderer.TINT_CELLS[tint], want_steps=True)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    assert torch.equal(ksteps, steps) and int(steps.sum()) > 0
+    if glow:
+        assert int(bright[0].sum()) > 0, "the bright pass is empty"

@@ -266,9 +266,9 @@ def test_build_flags_and_hash():
     assert "fast_math" not in flags
     assert _build.source_hash() == _build.source_hash()
     assert sorted(p.name for p in _build._sources()) == [
-        "accumulate.cu", "brickmap.cu", "caves.cu", "decorators.cu", "denoise.cu", "erosion.cu",
-        "features.cu", "fill.cu", "heightfield.cu", "layers.cu", "placements.cu", "present.cu",
-        "reproject.cu", "tracer.cu"]
+        "accumulate.cu", "brickmap.cu", "caves.cu", "debug.cu", "decorators.cu", "denoise.cu",
+        "erosion.cu", "features.cu", "fill.cu", "heightfield.cu", "layers.cu", "placements.cu",
+        "present.cu", "reproject.cu", "tracer.cu"]
     # every C entry point the wrappers call is declared in one of the sources
     text = "".join(p.read_text() for p in _build._sources())
     for name in _build.SIGNATURES:

@@ -167,14 +167,47 @@ def test_featured_slice_blocks(jax_area, port_featured):
                                       np.asarray(lists[kind]["count"]))
 
 
-@pytest.mark.parametrize(
-    "call",
-    [lambda: generate_demo.main(["--device", "cpu", "--render", "out.png"])],
-    ids=["demo-render"],
-)
-def test_unported_options_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+def test_demo_render_writes_the_render_chain(tmp_path, capsys):
+    """``--render`` on the CPU: a 1x1 area at 16x12 with 2 samples to a binary PPM, equal
+    byte for byte to build_scene -> render_sample + accumulate -> atrous_denoise ->
+    present on the same area from the demo's camera."""
+    from mega_minecraft_tpu_torch.render import brickmap, camera, denoise, sky, tonemap, tracer
+
+    cx, cz = ORIGIN_CHUNK
+    path = str(tmp_path / "frame.ppm")
+    argv = ["--device", "cpu", "--chunks", "1", "--origin", str(cx), str(cz), "--render", path,
+            "--width", "16", "--height", "12", "--spp", "2"]
+    assert generate_demo.main(argv) == 0
+    assert f"wrote {path}" in capsys.readouterr().out
+    data = open(path, "rb").read()
+    header = b"P6\n16 12\n255\n"
+    assert data[:len(header)] == header and len(data) == len(header) + 16 * 12 * 3
+    got = np.frombuffer(data[len(header):], np.uint8).reshape(12, 16, 3)
+
+    area = pipeline.generate_area(cx, cz, 1, 1, device="cpu")
+    scene = brickmap.build_scene(area["blocks"], cx, cz)
+    player = camera.Player(pos=np.array([(cx + 0.5) * 16, float(area["heightfield"].max()) + 14.0,
+                                         cz * 16 - 40.0], np.float32), theta=0.0, phi=-0.3)
+    cam = player.camera_params(16, 12, device="cpu")
+    params = sky.sky_params(1.0, 0.0, device="cpu")
+    fbs = tracer.init_framebuffers(12, 16, device="cpu")
+    for fid in range(2):
+        fbs = tracer.accumulate(fbs, *tracer.render_sample(scene, cam, params, 12, 16, fid), fid)
+    want = tonemap.present(denoise.atrous_denoise(fbs.color, fbs.albedo, fbs.normal)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.std() > 0, "a flat frame"
+
+
+@pytest.mark.parametrize("extra,want", [
+    ([], dict(chunks=5, origin=None, device="cuda", features=False, width=640, height=360, spp=8)),
+    (["--width", "320", "--height", "180", "--spp", "2", "--device", "cpu", "--chunks", "3"],
+     dict(chunks=3, device="cpu", width=320, height=180, spp=2)),
+], ids=["defaults", "overrides"])
+def test_demo_render_flags_parse(extra, want):
+    """``--render`` takes JAX's --width / --height / --spp, with its defaults."""
+    args = generate_demo.parse_args(["--render", "out.png", *extra])
+    assert args.render == "out.png"
+    assert {k: getattr(args, k) for k in want} == want
 
 
 @pytest.mark.parametrize("ncx,ncz", [(1, 1), (24, 23), (25, 24)])
