@@ -86,7 +86,22 @@ Phases, each of which raises (non-zero exit) on failure:
      phase 14's second engine under a scripted input (w + shift held, the arrows, the
      events p [ ] k f), the presented frame through ``encode_png`` and back equal; the
      mesher on the 5x5 area's chunk (0, 0), ``native.available()`` printed, the native
-     face scan's mesh equal to the numpy scan's.
+     face scan's mesh equal to the numpy scan's;
+ 17. the sharded programs of ``parallel/sharding.py`` on meshes that repeat the card
+     (``Mesh([cuda:0] * n)``; and on a mesh of every card when there are several), each
+     main run with the counts reset around it: ``dp_generate`` of the 1,024 chunks of a
+     32x32 area at chunk (-16, -16) over 1 and 4 shards (one K2h and one K4 a shard; the
+     blocks equal to K4 with no caves on the area path's K1 / K2 outputs, K2h's outputs
+     equal to those bit for bit and to its plain version on the 1,024 and the 256 chunks);
+     ``erode_zone_sharded`` over 1, 2, 4 and 8 shards on both ``golden_erosion.npz`` grids
+     and the eroded 24x24 area's grid (equal to K9 bit for bit, same sweep counts, shards x
+     sweeps K9b launches), K9b against its plain version on one band; ``sharded_render``
+     of the 1080p frame over 4 and 8 bands on the 10x10 and 33x33 scenes (equal to the
+     whole-frame K11 bit for bit, one K11 a band); then times: K2h at 16, 256 and 1,024
+     chunks and K9b alone, each a call between CUDA events and its launches' device time
+     under torch.profiler, ``dp_generate`` chunks/s, the sharded zone beside K9 and the
+     sharded frame beside the whole-frame K11 (the virtual shards measure the cost of the
+     split: extra launches, halo copies, one host sync a sweep, not any scaling).
 On the card, kernel and plain version run the same libm, so integer outputs must be
 equal; float outputs are held to max |diff| <= 1e-3 with >= 99.9% within 1e-5 (the frame
 path's kernels: equal).
@@ -97,9 +112,12 @@ one ``render_debug`` for K17; max
 |diff| over all checks; times and bounds at the 5x5 shapes, of K9 on the eroded area's
 grid, of K2s and K7s at the reference drain's largest batches, of K10-K12 on the 10x10
 bench scene at 1080p, of K10u per 33x33 bucket, of K13-K16 at the fly-through's
-shapes and of K17 on the 10x10 scene at 1080p by day; library times: K2s's gather as one
-indexing call, K15's ``F.interpolate``, K17's bloom as pad + conv2d), the last the device
-record.
+shapes, of K17 on the 10x10 scene at 1080p by day, of K2h (and its plain version) on 256
+chunks, the shard of the 4-shard ``dp_generate`` that gives its launches, and of K9b on a
+96-row band (launches: the 4-shard erosion of the 24x24 area's grid; its ``ms`` is a
+wrapper call between CUDA events, host-bound, the device time printed beside it); library times: K2s's gather as one indexing call, K12's three
+``torch.lerp``, K15's ``F.interpolate``, K17's bloom as pad + conv2d), the last the
+device record.
 ``--ptxas`` also prints each kernel's registers / spills (nvcc -Xptxas -v).
 
 A kernel's bound is the least time the card could take for the same work: the larger of
@@ -133,6 +151,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -189,7 +208,13 @@ KERNELS = {  # name -> (source, the JAX program it replaces)
                 "mega_minecraft_tpu/render/tonemap.py:22"),
     "render_debug": ("mega_minecraft_tpu_torch/csrc/debug.cu",
                      "mega_minecraft_tpu/render/debug_renderer.py:58"),
+    "dp_layers": ("mega_minecraft_tpu_torch/csrc/layers.cu",
+                  "mega_minecraft_tpu/parallel/sharding.py:58"),
+    "erosion_band": ("mega_minecraft_tpu_torch/csrc/erosion.cu",
+                     "mega_minecraft_tpu/parallel/sharding.py:124"),
 }
+#: the sharded programs' own kernels (phase 17); they also run K4 and K11
+SHARD_KERNELS = ("dp_layers", "erosion_band")
 #: the engine's frame path (Engine.tick -> Engine.present)
 FRAME_KERNELS = ("update_chunks", "reproject", "static_blend", "atrous_denoise", "upscale2x", "present")
 #: the render path's kernels (build_scene, trace, render_sample, accumulate)
@@ -1173,6 +1198,10 @@ def render_phases(dev, stamp, err, smi):
     p11 = cuda_ms(lambda: tracer.render_sample_plain(scene10, cam, day, H, W, 3), 1)
     k12 = cuda_ms(lambda: tracer.accumulate(fbs, c, a, n, 3), 20)
     p12 = cuda_ms(lambda: tracer.accumulate_plain(fbs, c, a, n, 3), 5)
+    # the library's running average: one torch.lerp a buffer (old + (new - old) / (fid + 1))
+    mult = tracer.accumulate_weights(3)[1]
+    times[("library", "accumulate")] = cuda_ms(
+        lambda: [torch.lerp(o, x, mult) for o, x in zip(fbs[:3], (c, a, n))], 20)
     b11t = bound(*k11t_counts(H * W, gst, scene10))
     b12 = bound(9 * c.numel() * 4, 3 * c.numel() * 3)
     times.update({"scene_fields": (times[("scene_fields", "10x10")], p10), "trace": (k11t, p11t),
@@ -1186,6 +1215,8 @@ def render_phases(dev, stamp, err, smi):
               f"of it), plain {pl_ms:.3f} ms ({pl_ms / k_ms:.1f}x), launches {launches[name]}")
     b33 = bounds[("render_sample", "33x33")]
     print(f"  K11 33x33 1080p bound {b33[0]:.4g} ms by {b33[1]}; frame {times[('frame', '33x33', 1080)]:.3f} ms")
+    print(f"  K12's library yardstick, three torch.lerp calls on the same buffers: "
+          f"{times[('library', 'accumulate')]:.4f} ms")
     del vol33, blocks33
     torch.cuda.empty_cache()
     scenes = {"scene10": scene10, "scene33": scene33, "blocks10": blocks10, "cam": cam, "day": day, "night": night}
@@ -1598,29 +1629,16 @@ def debug_phase(dev, stamp, err, smi, sc):
           f"{b33[0]:.4g} ms by {b33[1]}; the library's bloom (10 x F.pad + F.conv2d) {lib_ms:.4f} ms, within "
           f"{rel:.2g} of the largest value of the plain blur")
 
-    # the profiler misses the first launches it traces: trace one call more than counted
-    # and read the last ``reps`` calls' launches
-    reps = 5
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 1):
-            dr.render_debug(sc["scene10"], cam, day, H, W)
-        torch.cuda.synchronize()
-    spans = {"debug_shade_kernel": [], "blur_kernel": []}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            for k in spans:
-                if k in ev.name:
-                    spans[k].append((ev.time_range.start, ev.time_range.end))
-    want = {"debug_shade_kernel": reps, "blur_kernel": 10 * reps}
-    if all(len(spans[k]) >= n for k, n in want.items()):
-        ms = {k: sum(e - a for a, e in sorted(spans[k])[-n:]) / 1e3 / reps for k, n in want.items()}
-        print(f"  K17's device ms by launch (the last {reps} of {reps + 1} traced 10x10 day frames, per frame): "
-              f"shading {ms['debug_shade_kernel']:.4f}, bloom (10 blur launches) {ms['blur_kernel']:.4f}")
+    reps = 6
+    split, kept = device_ms(lambda: dr.render_debug(sc["scene10"], cam, day, H, W),
+                            {"debug_shade_kernel": 1, "blur_kernel": 10}, reps)
+    if split is not None:
+        print(f"  K17's device ms a frame by launch (torch.profiler over {reps} 10x10 day frames, the means "
+              f"of the launches it kept, {kept}+ a kernel): shading {split['debug_shade_kernel']:.4f}, bloom "
+              f"(10 blur launches) {split['blur_kernel']:.4f}")
     else:
-        print(f"  K17 traced: the profiler recorded { {k: len(v) for k, v in spans.items()} } launches of "
-              f"{reps + 1} frames; the split: not measured")
+        print(f"  K17 traced: the profiler kept {kept} launches of a kernel over {reps} frames; the split: "
+              "not measured")
     del scene_glow
     return (launches["render_debug"], (kernel_ms, plain_ms), (b_ms, b_by)), lib_ms
 
@@ -1739,6 +1757,243 @@ def entry_points_phase(dev, stamp, smi, eng):
           f"({None if faces is None else len(faces[1])} faces from the native scan), {n_faces} quads, "
           f"{len(mesh['positions'])} vertices in {mesh_s:.3f} s; native path equal to the numpy path: {same}")
     check(n_faces > 0 and same, "the mesher's native and numpy paths differ")
+
+
+# -- the sharded programs (phase 17) ----------------------------------------------------------
+SHARD_COUNTS = (1, 2, 4, 8)  # virtual shards of the erosion mesh (the card repeated)
+DP_AREA = (-16, -16, 32, 32)  # dp_generate's chunks: a 32x32 area at chunk (-16, -16)
+K9B_OPS = 40  # f32 operations of one column's sweep (8 neighbours, max, min, the sums)
+SHARD_FRAME = (1080, 1920)  # sharded_render's frame (height, width)
+K2H_LAUNCHES = {"heightfield_window_kernel": 1, "layers_window_kernel": 1}  # K2h's launches a call
+
+
+def device_ms(fn, launches, reps):
+    """Device time of one call of ``fn`` by kernel, under torch.profiler over ``reps`` calls.
+    ``launches`` maps a kernel's name (a part of it) to its launches a call; its time a call
+    is the mean span of the launches the profiler kept (it drops a trace's first ones) times
+    that count.  Returns ({name: ms}, or None when a kernel kept fewer than half its
+    launches; the fewest launches a kernel kept)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {k: [] for k in launches}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for k in spans:
+                if k in ev.name:
+                    spans[k].append(ev.time_range.end - ev.time_range.start)
+    fewest = min(len(v) for v in spans.values())
+    if any(2 * len(spans[k]) < max(1, reps * n) for k, n in launches.items()):
+        return None, fewest
+    return {k: sum(v) / len(v) * launches[k] / 1e3 for k, v in spans.items()}, fewest
+
+
+def fmt_ms(measured):
+    """A call's device time, all its kernels, from ``device_ms``."""
+    ms, n = measured
+    return f"not measured ({n} launches kept)" if ms is None else f"{sum(ms.values()):.4f} ms, {n}+ launches kept"
+
+
+def k2h_counts(pos, w, ls):
+    """(bytes, operations) of K2h on ``pos``: the positions read and the outputs written
+    once; K1's operations per column (from the inner weights) times 324 / 256 for the
+    window, plus K2's per column."""
+    from mega_minecraft_tpu_torch.world import biomes as bio
+
+    cols = pos.shape[0] * 256
+    per_biome = (w > 0).sum(dim=(0, 2, 3)).tolist()
+    k1 = cols * (11 * SIMPLEX2 + 150 + 24 * 6)
+    for b in bio.Biome:
+        s2, w2 = HEIGHT_FORMULA.get(b.name, (5, 0))
+        k1 += per_biome[int(b)] * (s2 * (SIMPLEX2 + 5) + w2 * WORLEY2 + 3)
+    return nbytes(pos) + cols * 4 * (1 + 24 + 20), k1 * 324 / 256 + cols * (960 + 11 * fbm2_ops(5) + 400)
+
+
+def sharded_phase(dev, stamp, err, smi, sc):
+    """Phase 17: the sharded programs of ``parallel/sharding.py`` on meshes that repeat the
+    card (``Mesh([cuda:0] * n)``: every shard's kernels, halo copies and flag reads run for
+    real; the split's cost, not any scaling), and on a mesh of every card when there are
+    several.  Each program's main run has the counts reset around it.  Returns
+    (launches, times, bounds) of K2h and K9b."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.parallel import sharding
+    from mega_minecraft_tpu_torch.render import tracer
+    from mega_minecraft_tpu_torch.terrain import erosion, pipeline
+    from mega_minecraft_tpu_torch.world.blocks import Block
+
+    def only(launches, want, tag):
+        for name, count in launches.items():
+            check(count == want.get(name, 0), f"{tag}: kernel {name} launched {count} times, "
+                  f"not {want.get(name, 0)}")
+
+    meshes = {n: sharding.Mesh([dev] * n) for n in SHARD_COUNTS}
+    launches, times, bounds = {}, {}, {}
+
+    stamp("phase 17: the sharded programs: dp_generate over 1 and 4 shards (1,024 chunks), "
+          "erode_zone_sharded over 1, 2, 4, 8 shards, sharded_render at 1080p over 4 and 8")
+    # -- data-parallel generation
+    pos = pipeline.chunk_positions(*DP_AREA, device=dev)
+    area = pipeline.generate_area_fused(pipeline.chunk_positions(DP_AREA[0] - 1, DP_AREA[1] - 1,
+                                                                 DP_AREA[2] + 2, DP_AREA[3] + 2,
+                                                                 device=dev), DP_AREA[2], DP_AREA[3])
+    check(torch.equal(area["chunk_pos"], pos), "the area path's chunk order differs")
+    empty = torch.full((pos.shape[0], 16, 16, 32), 384, dtype=torch.int32, device=dev)
+    want_blocks = kernels.fill(area["heightfield"], area["biome_weights"], area["layers"], empty,
+                               empty, pos)
+    for n in (1, 4):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        blocks = sharding.dp_generate(meshes[n], pos)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        only(counts, {"dp_layers": n, "fill": n}, f"dp_generate over {n}")
+        if n == 4:
+            launches["dp_layers"] = counts["dp_layers"]
+        check_equal(f"dp_generate over {n} shards: blocks vs K4 with no caves on the area path's "
+                    "K1 / K2 outputs", blocks, want_blocks)
+    hf, w, ls = kernels.dp_layers(pos)
+    for name, got, key in (("hf", hf, "heightfield"), ("weights", w, "biome_weights"), ("layers", ls, "layers")):
+        n_diff = int((got.view(torch.int32) != area[key].view(torch.int32)).sum())
+        print(f"  K2h {name} over 1,024 chunks vs the area path's: {n_diff} of {got.numel()} differ (bits)")
+        check(n_diff == 0, f"K2h {name} differs from the area path's")
+    # K2h against its plain version at the main path's shapes: the 1,024 chunks of one shard,
+    # and the 256 of a shard of four (the first 256, equal to the same chunks of the 1,024)
+    b4 = pos[:256].contiguous()
+    k256 = kernels.dp_layers(b4)
+    err["dp_layers"] = max(check_close(f"K2h {k} (1,024 chunks) vs plain", g, wnt)
+                           for k, g, wnt in zip(("hf", "weights", "layers"), (hf, w, ls),
+                                                sharding.gen_stage_layers_plain(pos)))
+    for name, got, want in zip(("hf", "weights", "layers"), k256, (hf, w, ls)):
+        check_equal(f"K2h {name} on 256 chunks vs the same chunks of the 1,024-chunk launch",
+                    got.view(torch.int32), want[:256].view(torch.int32))
+    check(bool((want_blocks[..., 0] == int(Block.BEDROCK)).all()), "dp blocks: a column lacks bedrock")
+    print(f"  dp blocks: {float((want_blocks == int(Block.AIR)).double().mean()):.4f} air, bedrock at "
+          "y = 0 in every column")
+
+    # -- row-banded erosion
+    ge = np.load(EROSION_GOLDEN)
+    pos_h = pipeline.chunk_positions(-1, -1, 26, 26, device=dev)
+    hf_h, w_h = kernels.heightfield(pos_h)
+    st = kernels.layers(hf_h, w_h, pos_h, 24, 24, fix_backward=False)
+    grids = {key: torch.as_tensor(ge[f"input_{key}"], device=dev) for key in ("0_0", "400_-560")}
+    grids["area"] = erosion.gather_zone_layers(st["layers"].reshape(24, 24, 20, 16, 16),
+                                               st["heightfield"].reshape(24, 24, 16, 16)).contiguous()
+    extra = {}
+    if torch.cuda.device_count() > 1:
+        extra[f"{torch.cuda.device_count()} cards"] = sharding.make_mesh()
+    err["erosion_band"] = 0.0
+    for key, grid in grids.items():
+        want, iters = kernels.erode_zone(grid)
+        iters = iters.tolist()
+        for tag, mesh in [(f"{n} x cuda:0", meshes[n]) for n in SHARD_COUNTS] + list(extra.items()):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sweeps = []
+            got = sharding.erode_zone_sharded(mesh, grid, sweeps)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            only(counts, {"erosion_band": mesh.size * sum(sweeps)}, f"erode_zone_sharded {key} {tag}")
+            if key == "area" and mesh is meshes[4]:
+                launches["erosion_band"] = counts["erosion_band"]
+            n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            check(got.device == mesh.devices[0] and n_diff == 0 and sweeps == iters,
+                  f"erode_zone_sharded {key} over {tag}: {n_diff} values differ from K9, sweeps "
+                  f"{sweeps} vs {iters}")
+        print(f"  erode_zone_sharded {key} over {list(SHARD_COUNTS)} x cuda:0"
+              f"{' and ' + ', '.join(extra) if extra else ''}: equal to K9 bit for bit, sweeps "
+              f"{iters} ({sum(iters)})")
+    # K9b against its plain version on one inner band of 96 rows (rows 96-191 of the area
+    # grid, layer 7 and its end), a first sweep with sums and a later one
+    g = grids["area"]
+    rows = 96
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    acc_in = (torch.rand((rows + 2, 384), generator=gen) * 2.0).to(dev)
+    bufs = {"start": g[7, rows - 1:2 * rows + 1].contiguous(), "end": g[8, rows - 1:2 * rows + 1].contiguous()}
+    for first in (True, False):
+        outs = []
+        for fn in (kernels.erosion_band, sharding.erosion_band_plain):
+            acc_out = acc_in.clone() if not first else torch.zeros_like(acc_in)
+            dst = torch.zeros_like(acc_in)
+            flags = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+            fn(bufs["start"], bufs["end"], acc_in if first else None, acc_out, dst, False, False, 7, flags, 0)
+            outs.append((dst[1:rows + 1], acc_out[1:rows + 1], flags))
+        for name, a, b in zip(("layer", "sums", "flags"), *outs):
+            n_diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            check(n_diff == 0, f"K9b {'first' if first else 'later'} sweep {name}: {n_diff} differ from plain")
+        moved = int((outs[0][0] != bufs["start"][1:rows + 1]).sum())
+        print(f"  K9b {'first' if first else 'later'} sweep on rows 96-191 vs plain: layer, sums and flags "
+              f"equal (bits); {moved} columns moved, flags {outs[0][2].tolist()}")
+        check(moved > 0, "K9b moved no column: the check compares nothing")
+
+    # -- row-banded rendering
+    cam, day = sc["cam"], sc["day"]
+    H, W = SHARD_FRAME
+    for tag, scene in (("10x10", sc["scene10"]), ("33x33", sc["scene33"])):
+        whole = tracer.render_sample(scene, cam, day, H, W, 3)
+        for n in (4, 8):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = sharding.sharded_render(meshes[n], scene, cam, day, H, W, 3)
+            torch.cuda.synchronize()
+            only(kernels.launch_counts(), {"render_sample": n}, f"sharded_render {tag} over {n}")
+            for name, a, b in zip(("color", "albedo", "normal"), got, whole):
+                n_diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                check(n_diff == 0, f"sharded_render {tag} over {n}: {name}: {n_diff} values differ")
+        print(f"  sharded_render {tag} 1920x1080 over 4 and 8 bands: color, albedo, normal equal to the "
+              f"whole frame (bits), one K11 launch a band")
+    del whole, got
+
+    # -- times (warm, CUDA events; the erosion and dp times include their host syncs)
+    print(f"  times on {smi}:")
+    for tag, p_ in (("16", pos[:16].contiguous()), ("256 (a shard of 4)", b4), ("1,024", pos)):
+        k_ms = cuda_ms(lambda: kernels.dp_layers(p_), 20)
+        dev_ms = device_ms(lambda: kernels.dp_layers(p_), K2H_LAUNCHES, 20)
+        hf_, w_, ls_ = kernels.dp_layers(p_)
+        b_ms, b_by = bound(*k2h_counts(p_, w_, ls_))
+        print(f"    K2h {tag} chunks: {k_ms:.4f} ms a call (device {fmt_ms(dev_ms)}), bound {b_ms:.4g} ms "
+              f"by {b_by} ({b_ms / k_ms:.1%} of it)")
+        if p_ is b4:
+            times["dp_layers"] = (k_ms, cuda_ms(lambda: sharding.gen_stage_layers_plain(b4), 1))
+            bounds["dp_layers"] = (b_ms, b_by)
+    k1_ms = cuda_ms(lambda: kernels.heightfield(pos), 20)
+    print(f"    (K1 alone on the same 1,024 chunks: {k1_ms:.4f} ms; K2h plain on 256 chunks "
+          f"{times['dp_layers'][1]:.3f} ms)")
+    for n in (1, 4):
+        ms = cuda_ms(lambda: sharding.dp_generate(meshes[n], pos), 5)
+        print(f"    dp_generate 1,024 chunks over {n} shard(s): {ms:.3f} ms = {1024 / (ms / 1e3):.1f} chunks/s")
+    later = dict(start=bufs["start"], end=bufs["end"], acc_in=None, acc_out=torch.zeros_like(acc_in),
+                 dst=torch.zeros_like(acc_in), top_edge=False, bottom_edge=False, rel=7,
+                 flags=torch.zeros(2, dtype=torch.int32, device=dev), k=1)
+    first_args = dict(later, acc_in=acc_in)
+    kb_ms = cuda_ms(lambda: kernels.erosion_band(**later), 50)
+    kf_ms = cuda_ms(lambda: kernels.erosion_band(**first_args), 50)
+    kb_dev = device_ms(lambda: kernels.erosion_band(**later), {"erosion_band_kernel": 1}, 50)
+    kf_dev = device_ms(lambda: kernels.erosion_band(**first_args), {"erosion_band_kernel": 1}, 50)
+    pb_ms = cuda_ms(lambda: sharding.erosion_band_plain(**later), 5)
+    col = rows * 384
+    times["erosion_band"] = (kb_ms, pb_ms)
+    bounds["erosion_band"] = bound(5 * col * 4, col * K9B_OPS)
+    bf = bound(7 * col * 4, col * (K9B_OPS + 18))
+    print(f"    K9b one later sweep of a 96-row band: {kb_ms:.4f} ms a call (device {fmt_ms(kb_dev)}), bound "
+          f"{bounds['erosion_band'][0]:.4g} ms by {bounds['erosion_band'][1]}; first sweep {kf_ms:.4f} ms "
+          f"(device {fmt_ms(kf_dev)}; bound {bf[0]:.4g} by {bf[1]}); plain {pb_ms:.3f} ms")
+    for key in ("area", "400_-560"):
+        grid = grids[key]
+        k9 = cuda_ms(lambda: kernels.erode_zone(grid), 20)
+        parts = []
+        for n in SHARD_COUNTS:
+            parts.append(f"{n}: {cuda_ms(lambda: sharding.erode_zone_sharded(meshes[n], grid), 5):.3f}")
+        print(f"    zone {key}: K9 {k9:.4f} ms; erode_zone_sharded ms per zone by shards, "
+              + ", ".join(parts))
+    for tag, scene in (("10x10", sc["scene10"]), ("33x33", sc["scene33"])):
+        k11 = cuda_ms(lambda: tracer.render_sample(scene, cam, day, H, W, 3), 5)
+        parts = [f"{n} bands {cuda_ms(lambda: sharding.sharded_render(meshes[n], scene, cam, day, H, W, 3), 5):.3f}"
+                 for n in (4, 8)]
+        print(f"    1080p frame {tag}: whole-frame K11 {k11:.3f} ms; sharded_render " + ", ".join(parts) + " ms")
+    return launches, times, bounds
 
 
 def main(argv):
@@ -2162,14 +2417,18 @@ def main(argv):
     # -- 13-14. the engine's frame path ------------------------------------------------------
     frame_times, frame_bounds, library = frame_kernel_phase(dev, stamp, err, smi)
     library["layers_slots"] = stream_times.pop(("library", "layers_slots"))
+    library["accumulate"] = render_times.pop(("library", "accumulate"))
     frame_launches, engine = flythrough_phase(dev, stamp, smi)
 
     # -- 15. the debug renderer; 16. the entry points ---------------------------------------
     debug_row, library["render_debug"] = debug_phase(dev, stamp, err, smi, render_scenes)
-    del render_scenes
-    torch.cuda.empty_cache()
     entry_points_phase(dev, stamp, smi, engine)
     del engine
+    torch.cuda.empty_cache()
+
+    # -- 17. the sharded programs ---------------------------------------------------------------
+    shard_launches, shard_times, shard_bounds = sharded_phase(dev, stamp, err, smi, render_scenes)
+    del render_scenes
     torch.cuda.empty_cache()
 
     # launches: the area kernels' from the featured 5x5 run, the streaming kernels' from the
@@ -2183,6 +2442,8 @@ def main(argv):
             return (frame_launches[name], frame_times[name], frame_bounds[name])
         if name == "render_debug":
             return debug_row
+        if name in SHARD_KERNELS:
+            return (shard_launches[name], shard_times[name], shard_bounds[name])
         return (stream_launches[name], stream_times[name], stream_bounds[name])
 
     report = {"kernels": []}
@@ -2202,9 +2463,19 @@ def main(argv):
     }}))
 
 
+def fail(msg):
+    """Report a failure on both streams, flushed, before the non-zero exit: a run whose
+    standard error is lost still ends its standard output with the cause."""
+    line = f"chip_smoke: FAILED: {msg}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
 if __name__ == "__main__":
     try:
         main(sys.argv[1:])
     except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        sys.exit(1)
+        fail(e)
+    except Exception:  # noqa: BLE001 - any other error is a failure too, with its traceback
+        fail(traceback.format_exc())

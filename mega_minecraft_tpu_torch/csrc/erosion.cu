@@ -31,6 +31,11 @@
 // Bound on the H100: neither bytes (the grid is 5.3 MB and stays in L2) nor operations
 // (~40 per column and sweep) but the chain of dependent sweeps, each ending in a
 // grid-wide barrier.
+//
+// K9b (erosion_band_kernel, below) is one sweep of one layer on a row band of the grid, for
+// the row-sharded erosion of parallel/sharding.py: the host owns the loop, exchanges the
+// bands' halo rows between sweeps and sums their changed flags.  It shares relax_column,
+// the arithmetic of a column's sweep, with K9, so the two agree bit for bit.
 
 #include <cooperative_groups.h>
 
@@ -74,28 +79,39 @@ MMT_FN float gathered(const ZoneArgs& a, int l, int Z, int X) {
   return a.layers[((size_t)slot * NUM_MATERIALS + NUM_STRATIFIED_MATERIALS + l) * 256 + col];
 }
 
-// one column's sweep of layer rel (_relax_once, erosion.py:42-55); returns whether it
-// changed.  FIRST: starts and ends read with the sums (start = g[rel] + acc), and a
-// column that is not written keeps the raw g[rel]; later sweeps read the layer buffer
-// and the raw end.
+// the arithmetic of one column's sweep (_relax_once, erosion.py:42-55): start s, end e, and
+// nb(i, nbs, nbe) loading the start and end of neighbour i (DIR_VECS_2D order) -> the new
+// start; *wrote: whether the 3x3 neighbourhood holds a positive thickness
+template <class NB>
+MMT_FN float relax_column(float s, float e, const float* offs, NB nb, bool* wrote) {
+  float ns = s, mt = e - s;
+  for (int i = 0; i < 8; ++i) {
+    float nbs, nbe;
+    nb(i, nbs, nbe);
+    ns = fmax_nan(ns, nbs - offs[i]);
+    mt = fmax_nan(mt, nbe - nbs);
+  }
+  *wrote = mt > 0.f;
+  return fmin_nan(ns, e);
+}
+
+// one column's sweep of layer rel; returns whether it changed.  FIRST: starts and ends
+// read with the sums (start = g[rel] + acc), and a column that is not written keeps the
+// raw g[rel]; later sweeps read the layer buffer and the raw end.
 template <bool FIRST>
 MMT_FN bool sweep_column(const ZoneArgs& a, int rel, int p, const float* src, const float* end,
                          const float* acc_in, float* acc_out, float* dst, const float* offs) {
   int Z = p / GRID_BLOCKS, X = p % GRID_BLOCKS;
   float s = FIRST ? gathered(a, rel, Z, X) + acc_in[p] : src[p];
   float e = FIRST ? end[p] + acc_in[p] : end[p];
-  float ns = s, mt = e - s;
-  for (int i = 0; i < 8; ++i) {
+  bool wrote;
+  float ns = relax_column(s, e, offs, [&](int i, float& nbs, float& nbe) {
     int z = clampi(Z + a.dirs[2 * i + 1], 0, GRID_BLOCKS - 1);
     int x = clampi(X + a.dirs[2 * i], 0, GRID_BLOCKS - 1);
     int q = z * GRID_BLOCKS + x;
-    float nbs = FIRST ? gathered(a, rel, z, x) + acc_in[q] : src[q];
-    float nbe = FIRST ? end[q] + acc_in[q] : end[q];
-    ns = fmax_nan(ns, nbs - offs[i]);
-    mt = fmax_nan(mt, nbe - nbs);
-  }
-  ns = fmin_nan(ns, e);
-  bool wrote = mt > 0.f;
+    nbs = FIRST ? gathered(a, rel, z, x) + acc_in[q] : src[q];
+    nbe = FIRST ? end[q] + acc_in[q] : end[q];
+  }, &wrote);
   bool changed = wrote && ns != s;
   acc_out[p] = (FIRST ? acc_in[p] : acc_out[p]) + (changed ? ns - s : 0.f);
   dst[p] = wrote ? ns : (FIRST ? gathered(a, rel, Z, X) : s);
@@ -197,5 +213,67 @@ extern "C" int mmt_erosion(const float* grid_in, float* layers, const float* hf,
   err = cudaLaunchCooperativeKernel((void*)erosion_kernel, dim3(blocks), dim3(THREADS), args, 0,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K9b: one Jacobi sweep of eroded layer rel on a band of `rows` grid rows (replaces
+// mega_minecraft_tpu/parallel/sharding.py:124-156,205-225 _relax_sharded and
+// _wrote_mask_sharded, the shard body of erode_zone_sharded:159).  Every buffer is
+// [rows + 2, 384]: row 0 the halo row above the band, rows 1..rows the band, row rows + 1
+// the halo row below; the host fills the halo rows from the neighbouring bands before the
+// sweep.  The edge bands clamp to their own border row instead (top / bottom: rows -1 and
+// rows map to rows 0 and rows - 1), as the grid's edge does in K9.  FIRST (the layer's first
+// sweep, acc_in given): start = raw layer + acc_in and end = end + acc_in, on the halo rows
+// too, a column not written keeps the raw layer, and acc_out = acc_in + the rise; later
+// sweeps read start and end as they are and add the rise to acc_out in place.  dst and
+// acc_out get the band's rows.  A block with a changed column sets flags[k & 1]; thread 0
+// clears flags[(k + 1) & 1] for the next sweep (which no thread of this sweep sets).  One
+// thread per column.  Bound on the H100 by bytes: each sweep reads the band's start, end
+// (and sums) and writes its layer and sums, ~40 operations a column.
+template <bool FIRST>
+__global__ void __launch_bounds__(THREADS) erosion_band_kernel(
+    const float* __restrict__ start, const float* __restrict__ end,
+    const float* __restrict__ acc_in, float* __restrict__ acc_out, float* __restrict__ dst,
+    int rows, int lo, int hi, int rel, const float* __restrict__ tan_repose,
+    const int* __restrict__ dirs, int* __restrict__ flags, int k) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  bool changed = false;
+  if (p < rows * GRID_BLOCKS) {
+    float tan = tan_repose[NUM_STRATIFIED_MATERIALS + rel];
+    float offs[8];
+    for (int i = 0; i < 8; ++i) offs[i] = tan * ((i & 1) ? F(1.41421356237309504880) : 1.f);
+    int R = p / GRID_BLOCKS, X = p % GRID_BLOCKS;
+    int q0 = p + GRID_BLOCKS;  // (R + 1) * 384 + X
+    float s = FIRST ? start[q0] + acc_in[q0] : start[q0];
+    float e = FIRST ? end[q0] + acc_in[q0] : end[q0];
+    bool wrote;
+    float ns = relax_column(s, e, offs, [&](int i, float& nbs, float& nbe) {
+      int r = clampi(R + dirs[2 * i + 1], lo, hi);
+      int x = clampi(X + dirs[2 * i], 0, GRID_BLOCKS - 1);
+      int q = (r + 1) * GRID_BLOCKS + x;
+      nbs = FIRST ? start[q] + acc_in[q] : start[q];
+      nbe = FIRST ? end[q] + acc_in[q] : end[q];
+    }, &wrote);
+    changed = wrote && ns != s;
+    acc_out[q0] = (FIRST ? acc_in[q0] : acc_out[q0]) + (changed ? ns - s : 0.f);
+    dst[q0] = wrote ? ns : start[q0];  // FIRST: the raw layer; later: s
+  }
+  if (__syncthreads_or(changed) && threadIdx.x == 0) flags[k & 1] = 1;
+  if (p == 0) flags[(k + 1) & 1] = 0;
+}
+
+extern "C" int mmt_erosion_band(const float* start, const float* end, const float* acc_in,
+                                float* acc_out, float* dst, int rows, int top_edge,
+                                int bottom_edge, int rel, const float* tan_repose, const int* dirs,
+                                int* flags, int k, void* stream) {
+  int lo = top_edge ? 0 : -1, hi = bottom_edge ? rows - 1 : rows;
+  int blocks = (rows * GRID_BLOCKS + THREADS - 1) / THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (acc_in)
+    erosion_band_kernel<true><<<blocks, THREADS, 0, st>>>(start, end, acc_in, acc_out, dst, rows, lo,
+                                                          hi, rel, tan_repose, dirs, flags, k);
+  else
+    erosion_band_kernel<false><<<blocks, THREADS, 0, st>>>(start, end, acc_in, acc_out, dst, rows,
+                                                           lo, hi, rel, tan_repose, dirs, flags, k);
   return (int)cudaGetLastError();
 }

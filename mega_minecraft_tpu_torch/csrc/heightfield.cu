@@ -11,6 +11,9 @@
 // column (SIMD lanes cannot branch); here a thread evaluates only the biomes with
 // non-zero weight (typically 1-4), which is the reference's per-thread branch.
 // Divergence within a warp is bounded because neighbouring columns share biomes.
+//
+// K2h's first half is here too: heightfield_window_kernel runs the same column code over
+// each chunk's own 18x18 window (see below and layers.cu).
 
 #include "mmt_math.cuh"
 
@@ -193,6 +196,40 @@ __global__ void heightfield_kernel(const int* __restrict__ pos, int B,
                                    float* __restrict__ w_out) {
   int tid = blockIdx.x * blockDim.x + threadIdx.x;
   if (tid < B * 256) heightfield_thread(tid, pos, noise_w, hf, w_out);
+}
+
+// K2h, first half (with layers_window_kernel in layers.cu; replaces
+// mega_minecraft_tpu/parallel/sharding.py:58-72 _gen_stage_layers' heightfield): one thread
+// per column of each chunk's 18x18 window, world x, z = origin - 1 .. origin + 16, the
+// heightfield recomputed from noise where the area path gathers it from the neighbouring
+// chunks' K1 outputs.  heightfield_column is a function of the world column alone, so the
+// window equals those outputs bit for bit.  h18 [B, 18, 18] is the window; the 16x16 inner
+// columns also write hf [B, 16, 16] and their weights [B, 24, 16, 16], as K1 does.
+__global__ void heightfield_window_kernel(const int* __restrict__ pos, int B,
+                                          const int* __restrict__ noise_w, float* __restrict__ h18,
+                                          float* __restrict__ hf, float* __restrict__ w_out) {
+  int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= B * 324) return;
+  int b = tid / 324, c = tid % 324;
+  int lz = c / 18 - 1, lx = c % 18 - 1;
+  float wx = (float)(pos[2 * b] + lx);
+  float wz = (float)(pos[2 * b + 1] + lz);
+  float w[NUM_BIOMES];
+  float h = heightfield_column(wx, wz, noise_w, w);
+  h18[tid] = h;
+  if (lx < 0 || lx > 15 || lz < 0 || lz > 15) return;
+  int col = lz * 16 + lx;
+  hf[b * 256 + col] = h;
+  for (int k = 0; k < NUM_BIOMES; ++k) w_out[(b * NUM_BIOMES + k) * 256 + col] = w[k];
+}
+
+extern "C" int mmt_heightfield_window(const int* pos, int B, const int* noise_w, float* h18,
+                                      float* hf, float* w, void* stream) {
+  const int threads = 128;
+  int blocks = (B * 324 + threads - 1) / threads;
+  heightfield_window_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(pos, B, noise_w, h18, hf,
+                                                                           w);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int mmt_heightfield(const int* pos, int B, const int* noise_w, float* hf, float* w,

@@ -17,6 +17,9 @@
 // applies the backward-stratified fixup, and writes the inner chunk's layers,
 // heightfield, weights and origin.
 //
+// K2h's second half (layers_window_kernel) reads each chunk's own 18x18 window, which
+// heightfield_window_kernel (heightfield.cu) recomputed, instead of gathering it.
+//
 // Bound on the H100: arithmetic (11 five-octave fBm per column); the 9 neighbour
 // reads and 24 weight reads per column hit L2/L1 (neighbouring threads read
 // neighbouring addresses).
@@ -150,6 +153,49 @@ __global__ void layers_slots_kernel(float* __restrict__ d_layers, const float* _
   layers_column((float)(pos[2 * b] + x), (float)(pos[2 * b + 1] + z), center, slope, w, bmw,
                 thickness, amplitude, scale, fix != 0, out);
   for (int l = 0; l < NUM_MATERIALS; ++l) d_layers[(own * NUM_MATERIALS + l) * 256 + col] = out[l];
+}
+
+// K2h, second half (replaces mega_minecraft_tpu/parallel/sharding.py:73-76, generate_layers
+// + fix_backward_stratified on the recomputed window): thread tid = b * 256 + z * 16 + x;
+// the max slope from the chunk's own window h18 [B, 18, 18], the weights [B, 24, 16, 16]
+// and origin pos [B, 2], then the column code of K2 with the backward fix
+__global__ void layers_window_kernel(const float* __restrict__ h18, const float* __restrict__ w_in,
+                                     const int* __restrict__ pos, int B,
+                                     const float* __restrict__ bmw,
+                                     const float* __restrict__ thickness,
+                                     const float* __restrict__ amplitude,
+                                     const float* __restrict__ scale, const int* __restrict__ dirs,
+                                     float* __restrict__ layers_out) {
+  int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= B * 256) return;
+  int b = tid >> 8, col = tid & 255;
+  int z = col >> 4, x = col & 15;
+  const float* win = h18 + b * 324;
+  float center = win[(z + 1) * 18 + x + 1];
+  float slope = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    float nb = win[(z + 1 + dirs[2 * i + 1]) * 18 + x + 1 + dirs[2 * i]];
+    float s = fabsf(nb - center);
+    if (i & 1) s = s * F(1.41421356237309504880);  // diagonal
+    slope = fmax_nan(slope, s);
+  }
+  float w[NUM_BIOMES];
+  for (int c = 0; c < NUM_BIOMES; ++c) w[c] = w_in[(b * NUM_BIOMES + c) * 256 + col];
+  float out[NUM_MATERIALS];
+  layers_column((float)(pos[2 * b] + x), (float)(pos[2 * b + 1] + z), center, slope, w, bmw,
+                thickness, amplitude, scale, true, out);
+  for (int l = 0; l < NUM_MATERIALS; ++l) layers_out[(b * NUM_MATERIALS + l) * 256 + col] = out[l];
+}
+
+extern "C" int mmt_layers_window(const float* h18, const float* w, const int* pos, int B,
+                                 const float* bmw, const float* thickness, const float* amplitude,
+                                 const float* scale, const int* dirs, float* layers_out,
+                                 void* stream) {
+  const int threads = 128;
+  int blocks = (B * 256 + threads - 1) / threads;
+  layers_window_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      h18, w, pos, B, bmw, thickness, amplitude, scale, dirs, layers_out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int mmt_layers(const float* hf_halo, const float* w_halo, const int* pos_halo, int ncx,

@@ -1,7 +1,8 @@
 """Launch wrappers of the hand-written CUDA kernels (K1-K9, K2s, K7s and K7's stream
 pre-kernel; the render path's K10 scene fields, K11t trace, K11 render_sample and K12
 accumulate; the engine's frame path: K10u update_chunks, K13 reproject, K13s
-static_blend, K14 atrous_denoise, K15 upscale2x and K16 present; K17 render_debug).
+static_blend, K14 atrous_denoise, K15 upscale2x and K16 present; K17 render_debug; the
+sharded programs' K2h dp_layers and K9b erosion_band).
 
 Each wrapper checks device, dtype, shape and contiguity of its inputs, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if the C
@@ -30,7 +31,7 @@ LAUNCHES = {"heightfield": 0, "layers": 0, "caves": 0, "fill": 0, "placements": 
             "erosion": 0, "layers_slots": 0, "features_slots": 0, "scene_fields": 0,
             "trace": 0, "render_sample": 0, "accumulate": 0, "update_chunks": 0,
             "reproject": 0, "static_blend": 0, "atrous_denoise": 0, "upscale2x": 0, "present": 0,
-            "render_debug": 0}
+            "render_debug": 0, "dp_layers": 0, "erosion_band": 0}
 
 N_BIOMES = bio.NUM_BIOMES
 N_MAT = bio.NUM_MATERIALS
@@ -97,6 +98,36 @@ def heightfield(chunk_pos):
             _launch("heightfield", _build.load().mmt_heightfield,
                     _p(chunk_pos), B, _p(tb.biome_noise_weights), _p(hf), _p(w))
     return hf, w
+
+
+def dp_layers(chunk_pos):
+    """K2h: [B, 2] i32 -> (heightfield [B, 16, 16], weights [B, 24, 16, 16], layers
+    [B, 20, 16, 16] with the backward fix), each chunk's 18x18 heightfield window recomputed
+    from noise (two launches, one count)."""
+    dev = chunk_pos.device
+    B = chunk_pos.shape[0]
+    _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    tb = load_tables(dev)
+    h18 = torch.empty((B, 18, 18), dtype=torch.float32, device=dev)
+    hf = torch.empty((B, 16, 16), dtype=torch.float32, device=dev)
+    w = torch.empty((B, N_BIOMES, 16, 16), dtype=torch.float32, device=dev)
+    ls = torch.empty((B, N_MAT, 16, 16), dtype=torch.float32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            lib = _build.load()
+            stream = torch.cuda.current_stream().cuda_stream
+            for part, err in (
+                ("heightfield window", lib.mmt_heightfield_window(
+                    _p(chunk_pos), B, _p(tb.biome_noise_weights), _p(h18), _p(hf), _p(w), stream)),
+                ("layers", lib.mmt_layers_window(
+                    _p(h18), _p(w), _p(chunk_pos), B, _p(tb.biome_material_weights),
+                    _p(tb.material_thickness), _p(tb.material_amplitude_or_tan_repose),
+                    _p(tb.material_scale_or_max_slope), _p(tb.dir_vecs_2d), _p(ls), stream)),
+            ):
+                if err != 0:
+                    raise RuntimeError(f"kernel dp_layers ({part}) failed to launch: cudaError_t {err}")
+        LAUNCHES["dp_layers"] += 1
+    return hf, w, ls
 
 
 def layers(hf_halo, w_halo, pos_halo, ncx: int, ncz: int, fix_backward: bool = True):
@@ -187,6 +218,32 @@ def erode_zone_slots(layers, heightfield, gslots, fix_all: bool):
     _check(heightfield, "heightfield", torch.float32, (N, 16, 16), dev)
     _check(gslots, "gslots", torch.int32, (24, 24), dev)
     return _erosion(dev, None, layers, heightfield, gslots, fix_all)[1]
+
+
+def erosion_band(start, end, acc_in, acc_out, dst, top_edge: bool, bottom_edge: bool, rel: int,
+                 flags, k: int) -> None:
+    """K9b: one sweep of eroded layer ``rel`` on a row band, in place.  ``start``, ``end``,
+    ``acc_in`` (the layer's first sweep; else None), ``acc_out`` and ``dst`` are
+    [rows + 2, 384] f32 with a halo row above and below the band; ``dst`` and ``acc_out``
+    get the band's rows; ``flags`` [2] i32: sweep ``k`` sets ``flags[k & 1]`` if a column
+    changed and clears ``flags[(k + 1) & 1]``."""
+    dev = start.device
+    shape = (start.shape[0], GRID_BLOCKS)
+    rows = shape[0] - 2
+    if rows < 1:
+        raise ValueError(f"start: shape {tuple(start.shape)}, expected [rows + 2, {GRID_BLOCKS}]")
+    for name, t in (("start", start), ("end", end), ("acc_out", acc_out), ("dst", dst)) + (
+            (("acc_in", acc_in),) if acc_in is not None else ()):
+        _check(t, name, torch.float32, shape, dev)
+    _check(flags, "flags", torch.int32, (2,), dev)
+    if not 0 <= rel < N_ERODED:
+        raise ValueError(f"rel {rel} outside [0, {N_ERODED})")
+    tb = load_tables(dev)
+    with torch.cuda.device(dev):
+        _launch("erosion_band", _build.load().mmt_erosion_band,
+                _p(start), _p(end), None if acc_in is None else _p(acc_in), _p(acc_out), _p(dst),
+                rows, int(top_edge), int(bottom_edge), rel,
+                _p(tb.material_amplitude_or_tan_repose), _p(tb.dir_vecs_2d), _p(flags), int(k))
 
 
 def caves(heightfield, biome_weights, chunk_pos):

@@ -44,6 +44,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # pos, B, noise_w, out hf, out w, stream
     "mmt_heightfield": [_P, _I, _P, _P, _P, _P],
+    # pos, B, noise_w, out h18, out hf, out w, stream (K2h, first half)
+    "mmt_heightfield_window": [_P, _I, _P, _P, _P, _P, _P],
+    # h18, w, pos, B, bmw, thickness, amplitude, scale, dirs, out layers, stream (K2h)
+    "mmt_layers_window": [_P, _P, _P, _I] + [_P] * 7,
     # hf_halo, w_halo, pos_halo, ncx, ncz, bmw, thickness, amplitude, scale, dirs, fix,
     # out layers, out hf_in, out w_in, out pos_in, stream
     "mmt_layers": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
@@ -53,6 +57,9 @@ SIGNATURES = {
     # grid_in (or null), layers (in/out, or null), hf, gslots, fix_all, tan_repose, dirs,
     # out grid, scratch tmp, scratch acc, flags, out iters, stream
     "mmt_erosion": [_P] * 4 + [_I] + [_P] * 8,
+    # start, end, acc_in (or null), acc_out, dst, rows, top_edge, bottom_edge, rel, tan_repose,
+    # dirs, flags, k, stream (K9b)
+    "mmt_erosion_band": [_P] * 5 + [_I] * 4 + [_P, _P, _P, _I, _P],
     # hf, w, pos, B, cave_noise_w, scratch carved, out starts, ends, bottom, top, stream
     "mmt_caves": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # hf, w, layers, starts, ends, pos, B, grass, mat_block, cave_noise_w, out blocks, stream

@@ -47,27 +47,34 @@ def repose_offsets() -> np.ndarray:
     return out
 
 
-def _shift_edge_clamp(a, dx: int, dz: int):
-    """a[z, x] read at (z + dz, x + dx), the grid's edge replicated."""
-    n = a.shape[-1]
-    iz = (torch.arange(n, device=a.device) + dz).clamp(0, n - 1)
-    ix = (torch.arange(n, device=a.device) + dx).clamp(0, n - 1)
+def _shift_edge_clamp(a, dx: int, dz: int, rows=None, halo: int = 0):
+    """a[z, x] read at (z + dz, x + dx) for the rows z of ``a`` less ``halo`` rows above and
+    below: x clamped to the grid's edge, z to ``rows`` = (lo, hi) (default: those rows, the
+    grid's edge replicated); lo = -1 or hi = their count reads a halo row."""
+    nz = a.shape[0] - 2 * halo
+    lo, hi = (0, nz - 1) if rows is None else rows
+    iz = (torch.arange(nz, device=a.device) + dz).clamp(lo, hi) + halo
+    ix = (torch.arange(a.shape[1], device=a.device) + dx).clamp(0, a.shape[1] - 1)
     return a.index_select(0, iz).index_select(1, ix)
 
 
-def _relax_once(start, end, offsets):
-    """One Jacobi sweep -> (start where written else new start, written mask, changed)."""
-    new_start = start
-    max_thickness = end - start
+def _relax_once(start, end, offsets, rows=None, halo: int = 0):
+    """One Jacobi sweep -> (start where written else new start, written mask, changed) of
+    the rows of ``start`` / ``end`` less ``halo`` rows above and below, which only
+    neighbours read (a row band's halo; ``rows`` as in ``_shift_edge_clamp``)."""
+    s = start[halo:start.shape[0] - halo]
+    e = end[halo:end.shape[0] - halo]
+    new_start = s
+    max_thickness = e - s
     for i, (dx, dz) in enumerate(bio.DIR_VECS_2D):
-        nb_start = _shift_edge_clamp(start, int(dx), int(dz))
-        nb_end = _shift_edge_clamp(end, int(dx), int(dz))
+        nb_start = _shift_edge_clamp(start, int(dx), int(dz), rows, halo)
+        nb_end = _shift_edge_clamp(end, int(dx), int(dz), rows, halo)
         new_start = torch.maximum(new_start, nb_start - offsets[i])
         max_thickness = torch.maximum(max_thickness, nb_end - nb_start)
-    new_start = torch.minimum(new_start, end)
+    new_start = torch.minimum(new_start, e)
     wrote = max_thickness > 0.0
-    changed = wrote & (new_start != start)
-    return torch.where(wrote, new_start, start), wrote, changed
+    changed = wrote & (new_start != s)
+    return torch.where(wrote, new_start, s), wrote, changed
 
 
 def erode_zone_plain(gathered_layers, iterations: list | None = None):

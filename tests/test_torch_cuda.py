@@ -19,7 +19,10 @@ K16, each bit for bit against its plain version on the card, and one engine tick
 present on the card with its launch counts.  The debug renderer: K17 against
 ``render_debug_plain`` bit for bit (and its DDA step counts) on the box scene of
 ``tests/test_render.py`` at 128x96, day with every tint, night, and with glowstone boxes
-whose bright pass is not empty, one launch count per call.
+whose bright pass is not empty, one launch count per call.  The sharded programs
+(``parallel/sharding.py``) on meshes that repeat the card: K9b over 4 row bands equal to K9
+bit for bit with the same sweep counts, K2h against its plain version and bit for bit
+against the area path's K1 / K2, and a 4-band ``sharded_render`` equal to the whole frame.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and skips
 without a card.  The file imports no JAX, so on a GPU machine without JAX it runs as
@@ -207,7 +210,7 @@ def test_featured_5x5_matches_plain_chain_on_gpu(cuda_device):
     # erosion, the scheduler's kernels, the render path's, the engine's frame path's and K17
     unused = ("erosion", "layers_slots", "features_slots", "scene_fields", "trace", "render_sample",
               "accumulate", "update_chunks", "reproject", "static_blend", "atrous_denoise", "upscale2x",
-              "present", "render_debug")
+              "present", "render_debug", "dp_layers", "erosion_band")
     assert kernels.launch_counts() == {k: int(k not in unused) for k in kernels.LAUNCHES}
 
     hf, w = heightfield.generate_heightfield_plain(pos)
@@ -526,3 +529,57 @@ def test_render_debug_kernel_matches_plain_on_gpu(cuda_device, sun_time, tint, g
     assert torch.equal(ksteps, steps) and int(steps.sum()) > 0
     if glow:
         assert int(bright[0].sum()) > 0, "the bright pass is empty"
+
+
+@pytest.mark.cuda
+def test_sharded_erosion_bands_match_k9_on_gpu(cuda_device):
+    from mega_minecraft_tpu_torch.parallel import sharding
+
+    grid = torch.from_numpy(np.load(GOLDEN_EROSION)["input_400_-560"]).to(cuda_device)
+    want, iters = kernels.erode_zone(grid)
+    kernels.reset_launch_counts()
+    sweeps = []
+    got = sharding.erode_zone_sharded(sharding.Mesh([cuda_device] * 4), grid, sweeps)
+    torch.cuda.synchronize()
+    assert sweeps == iters.cpu().tolist()
+    assert kernels.launch_counts()["erosion_band"] == 4 * sum(sweeps)
+    assert kernels.launch_counts()["erosion"] == 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_dp_layers_kernel_matches_plain_and_area_path_on_gpu(cuda_device):
+    from mega_minecraft_tpu_torch.parallel import sharding
+
+    pos_halo = _pos_halo(cuda_device)
+    pos = pos_halo[4:5].contiguous()
+    kernels.reset_launch_counts()
+    hf, w, ls = sharding.gen_stage_layers(pos)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dp_layers"] == 1
+    for got, want in zip((hf, w, ls), sharding.gen_stage_layers_plain(pos)):
+        _close(got, want)
+    hf_h, w_h = kernels.heightfield(pos_halo)
+    st = kernels.layers(hf_h, w_h, pos_halo, 1, 1)
+    for got, key in ((hf, "heightfield"), (w, "biome_weights"), (ls, "layers")):
+        assert torch.equal(got, st[key]), key
+    blocks = sharding.dp_generate(sharding.Mesh([cuda_device] * 1), pos)
+    empty = torch.full((1, 16, 16, 32), 384, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(blocks, kernels.fill(st["heightfield"], st["biome_weights"], st["layers"],
+                                            empty, empty, pos))
+
+
+@pytest.mark.cuda
+def test_sharded_render_bands_match_whole_frame_on_gpu(cuda_device, render_scene):
+    from mega_minecraft_tpu_torch.parallel import sharding
+
+    scene, player, _ = render_scene
+    cam = player.camera_params(256, 128, device=cuda_device)
+    params = sky.sky_params(1.0, 0.0, device=cuda_device)
+    whole = tracer.render_sample(scene, cam, params, 128, 256, 3)
+    kernels.reset_launch_counts()
+    got = sharding.sharded_render(sharding.Mesh([cuda_device] * 4), scene, cam, params, 128, 256, 3)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["render_sample"] == 4
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)

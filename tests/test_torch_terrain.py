@@ -228,8 +228,12 @@ def test_stage_on_unsupported_device_raises():
                              torch.zeros((1, 2), dtype=torch.int32)),
         lambda: kernels.layers(torch.zeros((9, 16, 16)), torch.zeros((9, 24, 16, 16)),
                                torch.zeros((9, 2), dtype=torch.int32), 2, 1),
+        lambda: kernels.dp_layers(torch.zeros((4, 2))),
+        lambda: kernels.erosion_band(*(torch.zeros((50, 384)),) * 3, torch.zeros((50, 383)),
+                                     torch.zeros((50, 384)), False, False, 7,
+                                     torch.zeros(2, dtype=torch.int32), 0),
     ],
-    ids=["dtype", "shape", "batch", "contiguity", "halo-shape"],
+    ids=["dtype", "shape", "batch", "contiguity", "halo-shape", "dp-layers-dtype", "erosion-band-shape"],
 )
 def test_kernel_wrappers_validate_before_launch(call):
     before = kernels.launch_counts()
