@@ -11,7 +11,10 @@ Phases, each of which raises (non-zero exit) on failure:
      source, started together);
   3. hold each kernel K1-K8 (and K7's stream pre-kernel) against its plain PyTorch
      version on the card, on the 5 golden chunks plus 2 seeded ones (K7: each chunk as
-     a 1x1 area);
+     a 1x1 area); K3 here and wherever it is checked below runs twice, on its cell table
+     (``terrain/caves.py`` ``CELL_TABLE_CAP`` cells) and with a table of 0 cells, so that
+     every tile takes its direct path, each bit for bit on the four cave arrays and the
+     carve band, with the tiles that took the direct path and the largest cell box printed;
   4. hold K1-K3 against ``tests/golden/golden_chunks.npz`` and the featured 7x7 areas
      around the four chunks of ``tests/golden/golden_blockgrid.npz`` against its
      ``pre_*`` (fill + features) and ``post_*`` (after decorators) centre chunks, at
@@ -23,9 +26,11 @@ Phases, each of which raises (non-zero exit) on failure:
      the same inputs; the featureless 5x5 run likewise, which must equal the middle of
      the featureless 33x33 run bit for bit; then the featured 33x33 area, whose middle
      5x5 chunks must equal those of a featured 11x11 run (both see full 49-chunk
-     neighbourhoods), and bedrock at y = 0 in every column;
+     neighbourhoods), and bedrock at y = 0 in every column; K3 against its plain version
+     at the 5x5 and the 33x33 shapes;
   6. time the slices, the feature half and every kernel (and its plain version at the
-     5x5 shapes) warm with CUDA events, and compute every kernel's bound;
+     5x5 shapes) warm with CUDA events, K3's device time under torch.profiler, and compute
+     every kernel's bound;
   7. hold K9 (zone erosion) against its plain version bit for bit, with the same sweep
      counts, and against ``tests/golden/golden_erosion.npz`` at tests/test_golden.py's
      gate; generate the eroded featured 24x24 area through ``pipeline.generate_area(...,
@@ -38,8 +43,9 @@ Phases, each of which raises (non-zero exit) on failure:
      against none on every filled chunk;
   9. drain the reference workload, ``make_scheduler(radius=None, skip_erosion=False,
      native=True)`` (the radius-40 spiral, 1,089 drawable chunks), with the counts reset
-     around it; replay its first zone erosion through the plain versions; time K2s and K7s
-     at its largest batches against their plain versions; drain it again with the
+     around it; replay its first zone erosion through the plain versions; K3 against its
+     plain version on its largest caves batch; time K2s and K7s at its largest batches
+     against their plain versions; drain it again with the
      ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share;
  10. the render path's main run, as bench_render.py drives it, with the counts reset just
      before and read just after: ``brickmap.build_scene`` of the 10x10 bench scene (four
@@ -62,8 +68,9 @@ Phases, each of which raises (non-zero exit) on failure:
      (``brickmap.update_chunks``) on the featured 33x33 scene (a 3x3 bucket rewritten with
      one chunk air, a bucket removed, the corner bucket with its window clamped), K13 and
      K13s after a moved and a static camera at 960x540, K14 with and without nsamp, K15 to
-     1920x1080 (also within 1e-6 of ``F.interpolate``), K16 at 1920x1080; each timed
-     (plain, kernel, kernel, plain) with its bound, K15's library call timed;
+     1920x1080 (also within 1e-6 of ``F.interpolate``) and at 1x1, 5x3 and 9x7, K16 at
+     1920x1080; each timed (plain, kernel, kernel, plain) with its bound, K15's library
+     call timed; K15's and ``F.interpolate``'s calls beside their device time;
  14. the reference fly-through (bench_flythrough.py:27-36: 1920x1080 upscaled from
      960x540, view_chunks 33, the radius-40 spiral with erosion, denoise, reprojection)
      through ``app.engine.Engine``: the drain, then with the counts reset around them the
@@ -126,8 +133,9 @@ placement lists only the valid entries) over 3.35 TB/s and its f32 operations ov
 67 TFLOP/s (the H100 SXM's published rates).  Operations are what the function needs on
 this run's data, with the unit costs below (how many biomes have weight, how many blocks
 reach the cave-biome noise, which voxels lie in a placement's window and height bounds
-and pass its terrain test), not what a kernel's design spends; they are estimates good
-to a few tens of percent.  The render kernels: K10 the u8 volume read and the words
+and pass its terrain test, how many distinct Worley cells a chunk's carve tests read: K3
+counts each one's three hashes once a chunk, not 81 a block), not what a kernel's design
+spends; they are estimates good to a few tens of percent.  The render kernels: K10 the u8 volume read and the words
 written, and the doubling rounds' operations per voxel (the function is that transform);
 K11t and K11 the rays' or frame's inputs and outputs plus the field words their DDA steps
 read (at most the field), and the steps this frame's rays took (K11's counts output) times
@@ -367,6 +375,70 @@ def check_dict_equal(prefix, got, want):
     return mx
 
 
+def distinct_cells(cells, active):
+    """[B, N, 3] i64 Worley cells, [B, N] bool -> [B] i64: the distinct cells that the 27-cell
+    searches (each a cell and its +-1 ring) of each chunk's active entries read."""
+    act = active[..., None]
+    lo = torch.where(act, cells, cells.amax(dim=1, keepdim=True)).amin(dim=1, keepdim=True)
+    hi = torch.where(act, cells, lo).amax(dim=1, keepdim=True)
+    rel = torch.where(act, cells - lo + 1, 0)
+    ex, ey, ez = (int(e) for e in (hi - lo + 3).amax(dim=(0, 1)))
+    occ = torch.zeros((cells.shape[0], ex * ey * ez), dtype=torch.float32, device=cells.device)
+    occ.scatter_reduce_(1, (rel[..., 0] * ey + rel[..., 1]) * ez + rel[..., 2], active.float(), "amax")
+    ring = torch.nn.functional.max_pool3d(occ.view(-1, 1, ex, ey, ez), 3, stride=1, padding=1)
+    return ring.flatten(1).sum(dim=1).to(torch.int64)
+
+
+def carve_work(biome_weights, chunk_pos, step=256):
+    """(active blocks, distinct Worley cells, the same cells had every block been active) of
+    the chunks' carve tests, by the plain noise of ``terrain/caves.py``: the blocks whose
+    threshold exceeds 0.04, which alone need the domain warp and the Worley search, and the
+    cells those searches read, summed over the chunks (each chunk's once)."""
+    from mega_minecraft_tpu_torch.terrain import caves
+
+    n_active = n_cells = n_cells_all = 0
+    for i in range(0, chunk_pos.shape[0], step):
+        w, pos = biome_weights[i : i + step], chunk_pos[i : i + step]
+        coords = caves.band_coords(pos)
+        thr = caves.carve_threshold(*coords, caves.ocean_beach_weight(w)[..., None])
+        active = (thr > 0.04).reshape(pos.shape[0], -1)
+        cells = torch.stack([torch.floor(c) for c in caves.carve_warp(*coords)], dim=-1)
+        cells = cells.to(torch.int64).reshape(pos.shape[0], -1, 3)
+        n_active += int(active.sum())
+        n_cells += int(distinct_cells(cells, active).sum())
+        n_cells_all += int(distinct_cells(cells, torch.ones_like(active)).sum())
+    return n_active, n_cells, n_cells_all
+
+
+def check_k3(tag, hf, w, pos, step=256):
+    """K3 on its cell table (``terrain/caves.py`` ``CELL_TABLE_CAP`` cells) and with every tile
+    on the direct path (capacity 0), each bit for bit against the plain version on the same
+    inputs (run ``step`` chunks at a time): the four cave arrays and the carve band.  Prints
+    the tiles (CTAs) that took the direct path and the largest cell box of each run; returns
+    the max |diff|."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.terrain import caves
+
+    B = pos.shape[0]
+    parts = [(hf[i : i + step], w[i : i + step], pos[i : i + step]) for i in range(0, B, step)]
+    want = [caves.generate_caves_plain(*a) for a in parts]
+    want = {k: torch.cat([d[k] for d in want]) for k in want[0]}
+    band = torch.cat([caves.carve_band_plain(a[1], a[2]) for a in parts])
+    mx = 0.0
+    for cap in (caves.CELL_TABLE_CAP, 0):
+        stats = torch.zeros(2, dtype=torch.int32, device=pos.device)
+        got = kernels.caves(hf, w, pos, cap, stats, want_carved=True)
+        direct, largest = stats.tolist()
+        print(f"  K3 {tag}, a table of {cap} cells: {direct} of {B * 144} tiles took the direct path; "
+              f"largest cell box {largest} cells; {int(band.sum())} blocks carved")
+        mx = max(mx, check_equal(f"K3 {tag} carve band (table {cap})", got.pop("carved"), band))
+        for k in want:
+            mx = max(mx, check_equal(f"K3 {tag} {k} (table {cap})", got[k], want[k]))
+        check(cap > 0 or direct > 0, f"K3 {tag}: no tile took the direct path with no table")
+        check(cap == 0 or direct == 0, f"K3 {tag}: {direct} tiles took the direct path with the table")
+    return mx
+
+
 def op_counts(n, pos_halo, w_halo, out, lists, names):
     """(bytes, f32 operations) each kernel needs for the n x n area of this run."""
     from mega_minecraft_tpu_torch.kernels import CAVE_FIELDS, STREAM_LEN, SURFACE_FIELDS
@@ -389,13 +461,28 @@ def op_counts(n, pos_halo, w_halo, out, lists, names):
     in2 = H * 256 * 4 * 25 + nbytes(pos_halo)
     out2 = nbytes(out["layers"], out["heightfield"], out["biome_weights"], out["chunk_pos"])
     res["layers"] = (in2 + out2, cols * (960 + 11 * fbm2_ops(5) + 400))
-    # K3: the carve test on 144 of 384 blocks per column, the ravine per column, the cave
-    # biome at the valid layer edges of this run
-    carve = 3 * fbm3_ops(5) + WORLEY3 + 27 * 10 + 2 * fbm3_ops(4) + 40
+    # K3: per block below y = 144 the carve test's threshold; where it exceeds 0.04 (this
+    # run's active blocks) the domain warp and the Worley search, whose 27 cells' jitters
+    # (three sin-hashes each) depend on the integer cell alone: the function needs each
+    # distinct cell's once a chunk, so the count takes the 81 hashes out of the search and
+    # adds three for each distinct cell that a chunk's active blocks read; the ravine per
+    # column; the cave biome at the valid layer edges of this run
+    threshold = 2 * fbm3_ops(4) + 40
+    warp_search = 3 * fbm3_ops(5) + WORLEY3 - 81 * SINHASH + 27 * 10
+    carve_before = threshold + warp_search + 81 * SINHASH
     ravine = 16 * (SIMPLEX2 + 5) + WORLEY2 + 500
     edges = int((cv["starts"] != 384).sum()) + int((cv["ends"] != 384).sum())
+    n_active, n_cells, n_cells_all = carve_work(out["biome_weights"], out["chunk_pos"])
+    rest = cols * ravine + edges * CAVE_BIOME
     res["caves"] = (nbytes(out["heightfield"], out["biome_weights"], out["chunk_pos"], cv),
-                    cols * 144 * carve + cols * ravine + edges * CAVE_BIOME)
+                    cols * 144 * threshold + n_active * warp_search + n_cells * 3 * SINHASH + rest)
+    before = bound(res["caves"][0], cols * 144 * carve_before + rest)
+    uniform = bound(res["caves"][0], cols * 144 * (threshold + warp_search) + n_cells_all * 3 * SINHASH + rest)
+    print(f"    K3's bound: {n_active} of {cols * 144} blocks active ({n_active / (cols * 144):.4f}), "
+          f"{n_cells} distinct Worley cells over {B} chunks ({n_cells / B:.1f} a chunk); a block "
+          f"{threshold} operations, an active one {warp_search} more: {bound(*res['caves'])[0]:.4g} ms; "
+          f"every block active ({n_cells_all} cells) {uniform[0]:.4g} ms; every block hashing its 81 sins "
+          f"{before[0]:.4g} ms by {before[1]}")
     # K4: per block the biome pick, the cave scan and the cascade; the cave-biome noise only
     # for this run's solid stone-like blocks below y = 192 (counted from the featureless
     # blocks: the stone family and what the cave biomes turn it into); 7 fields per column
@@ -652,6 +739,12 @@ def time_stream_kernels(dev, t, log, err, times, bounds, smi):
     print(f"  K2s on {smi}: {ms:.4f} ms for {B} chunks, plain {plain_ms:.3f} ms, bound "
           f"{bounds['layers_slots'][0]:.4g} ms by {bounds['layers_slots'][1]}; the gather as one "
           f"indexing call (gather_heightfields_batch's library time): {gather_ms:.4f} ms")
+
+    _, (_, (sl_np, pos_np), _) = first_and_largest(log, "dispatch_caves")[1]
+    sl, pos = t.upload(sl_np, pos_np)
+    rows = sl.long()
+    err["caves"] = max(err["caves"], check_k3(f"on the drain's largest caves batch ({len(sl_np)} chunks)",
+                                              t.d_heightfield[rows], t.d_weights[rows], pos))
 
     _, (_, (sl_np, pos_np, nb_np), _) = first_and_largest(log, "dispatch_fill")[1]
     sl, pos, nsl = t.upload(sl_np, pos_np, nb_np)
@@ -1328,6 +1421,11 @@ def frame_kernel_phase(dev, stamp, err, smi):
     rel = float(((up - lib).abs() / lib.abs().clamp(min=1e-30)).max())
     print(f"  K15 against F.interpolate(bilinear, align_corners=False): max relative |diff| {rel:.3g}")
     check(rel <= 1e-6, f"K15 differs from torch's bilinear upscale by {rel}")
+    for hh, ww in ((1, 1), (3, 5), (7, 9)):
+        small = den[:hh, :ww].contiguous()
+        err["upscale2x"] = max(err["upscale2x"], check_equal(
+            f"K15 {ww}x{hh} -> {2 * ww}x{2 * hh}", denoise.upscale2x(small).view(torch.int32),
+            denoise.upscale2x_plain(small).view(torch.int32)))
     img = tonemap.present(up)
     err["present"] = check_equal("K16 1920x1080", img, tonemap.present_plain(up))
     check(tuple(img.shape) == (1080, 1920, 3) and float(img.float().std()) > 5.0, "K16: a flat frame")
@@ -1354,6 +1452,12 @@ def frame_kernel_phase(dev, stamp, err, smi):
               f"({bnd[0] / times[name][0]:.1%} of it), plain {times[name][1]:.3f} ms on {smi}")
     library["upscale2x"] = cuda_ms(interp, 50)
     print(f"    upscale2x's library call F.interpolate: {library['upscale2x']:.4f} ms")
+    # a call's host and device time: the device time of its launch under torch.profiler
+    for tag, fn, launch in (("K15", lambda: denoise.upscale2x(den), "upscale2x_kernel"),
+                            ("F.interpolate", interp, "upsample_bilinear2d")):
+        call = [cuda_ms(fn, 200) for _ in range(2)]
+        print(f"    {tag} at 960x540 -> 1920x1080: a call {call[0]:.4f} / {call[1]:.4f} ms (CUDA events), "
+              f"device {fmt_ms(device_ms(fn, {launch: 1}, 200))}")
     del scene, blocks33, slot_table
     torch.cuda.empty_cache()
     return times, bounds, library
@@ -2100,9 +2204,8 @@ def main(argv):
         check(torch.equal(cat(st_k, k), cat(st_p, k)), f"K2 {k}: gather differs")
     hf_in, w_in, pos_in, ls_in = (cat(st_p, k) for k in ("heightfield", "biome_weights", "chunk_pos", "layers"))
 
-    cv_k = kernels.caves(hf_in, w_in, pos_in)
     cv_p = caves.generate_caves_plain(hf_in, w_in, pos_in)
-    err["caves"] = max(check_equal(f"K3 {k}", cv_k[k], cv_p[k]) for k in cv_p)
+    err["caves"] = check_k3("on the golden and seeded chunks", hf_in, w_in, pos_in)
 
     bl_k = kernels.fill(hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], pos_in)
     bl_p = fill.fill_chunks_plain(hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], pos_in)
@@ -2201,7 +2304,7 @@ def main(argv):
         check(np.median(dl) < 0.05 and (dl < 1.0).mean() > 0.98, f"K2 layers golden ({cx},{cz})")
 
         cvg = kernels.caves(hf18[None, 1:17, 1:17].contiguous(), w_h[4:5].contiguous(),
-                            gpos[i : i + 1].contiguous())
+                            gpos[i : i + 1].contiguous(), caves.CELL_TABLE_CAP)
         s_ok = (cvg["starts"][0].cpu().numpy() == g[f"cavestarts_{cx}_{cz}"])
         e_ok = (cvg["ends"][0].cpu().numpy() == g[f"caveends_{cx}_{cz}"])
         check(s_ok.mean() > 0.95 and e_ok.mean() > 0.95, f"K3 cave layers golden ({cx},{cz})")
@@ -2275,8 +2378,7 @@ def main(argv):
                           for k in ("heightfield", "biome_weights", "chunk_pos")))
     in3 = (st_p["heightfield"], st_p["biome_weights"], st_p["chunk_pos"])
     cv_p = caves.generate_caves_plain(*in3)
-    cv_k = kernels.caves(*in3)
-    err["caves"] = max(err["caves"], *(check_equal(f"K3 {k}", cv_k[k], cv_p[k]) for k in cv_p))
+    err["caves"] = max(err["caves"], check_k3("at the 5x5 shapes", *in3))
     in4 = (*in3[:2], st_p["layers"], cv_p["starts"], cv_p["ends"], in3[2])
     plain5 = fill.fill_chunks_plain(*in4)
     err["fill"] = max(err["fill"], check_equal("K4 blocks", kernels.fill(*in4), plain5))
@@ -2335,6 +2437,8 @@ def main(argv):
           f"(max per chunk {int(out33['placements']['surface']['count'].max())} / "
           f"{int(out33['placements']['cave']['count'].max())})")
     del out11, mid11, mid33, inner
+    err["caves"] = max(err["caves"], check_k3("at the 33x33 shapes", out33["heightfield"],
+                                              out33["biome_weights"], out33["chunk_pos"]))
 
     # -- 6. timing (warm, CUDA events) ----------------------------------------------------
     stamp("phase 6: timing")
@@ -2342,7 +2446,7 @@ def main(argv):
     for n, pos, out in ((5, pos5, out5), (33, pos33, out33)):
         hf, w = kernels.heightfield(pos)
         st = kernels.layers(hf, w, pos, n, n)
-        cv = kernels.caves(st["heightfield"], st["biome_weights"], st["chunk_pos"])
+        cv = kernels.caves(st["heightfield"], st["biome_weights"], st["chunk_pos"], caves.CELL_TABLE_CAP)
         args_fill = (st["heightfield"], st["biome_weights"], st["layers"], cv["starts"],
                      cv["ends"], st["chunk_pos"])
         base_blocks = kernels.fill(*args_fill)
@@ -2360,7 +2464,7 @@ def main(argv):
                             lambda: heightfield.generate_heightfield_plain(pos)),
             "layers": (lambda: kernels.layers(hf, w, pos, n, n),
                        lambda: layers.layers_from_halo_plain(hf, w, pos, n, n)),
-            "caves": (lambda: kernels.caves(*args_fill[:2], args_fill[5]),
+            "caves": (lambda: kernels.caves(*args_fill[:2], args_fill[5], caves.CELL_TABLE_CAP),
                       lambda: caves.generate_caves_plain(*args_fill[:2], args_fill[5])),
             "fill": (lambda: kernels.fill(*args_fill),
                      lambda: fill.fill_chunks_plain(*args_fill)),
@@ -2391,6 +2495,7 @@ def main(argv):
         half_ms = cuda_ms(lambda: pipeline.feature_half(base_blocks, *args_fill[:3], cv,
                                                         st["chunk_pos"], n, n), reps)
         times[("slice", n)] = (full_ms, None)
+        k3_dev = device_ms(calls["caves"][0], {"carve_kernel": 1, "column_kernel": 1}, max(reps, 10))
         counted = {"base_blocks": base_blocks, "caves": cv, "placement_grids": grids, **st}
         bounds[n] = {k: bound(*v) for k, v in
                      op_counts(n, pos, w, counted, lists, AREA_KERNELS).items()}
@@ -2398,6 +2503,7 @@ def main(argv):
               f"{n * n / (full_ms / 1e3):.1f} chunks/s; featureless slice {base_ms:.3f} ms = "
               f"{n * n / (base_ms / 1e3):.1f} chunks/s; feature half {half_ms:.3f} ms "
               f"({half_ms / full_ms:.1%} of the featured slice)")
+        print(f"    caves (K3) on the device: {fmt_ms(k3_dev)} (carve, column: {k3_dev[0]})")
         for name in AREA_KERNELS:
             k, pl_ms = times[(name, n)]
             b_ms, b_by = bounds[n][name]

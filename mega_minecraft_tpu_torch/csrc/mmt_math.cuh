@@ -217,10 +217,18 @@ MMT_FN void rand3_from2(float x, float y, float& r0, float& r1, float& r2) {
 // first component of rand3_from2 (the only one the terrain reads)
 MMT_FN float rand3_from2_x(float x, float y) { return sinhash(x * F(238.68) + y * F(491.28)); }
 
+// component k (0, 1, 2) of rand3_from3
+MMT_FN float rand3_from3_k(float x, float y, float z, int k) {
+  float a = k == 0 ? F(238.68) : (k == 1 ? F(654.37) : F(640.88));
+  float b = k == 0 ? F(491.28) : (k == 1 ? F(560.45) : F(151.81));
+  float c = k == 0 ? F(402.98) : (k == 1 ? F(747.42) : F(674.81));
+  return sinhash(x * a + y * b + z * c);
+}
+
 MMT_FN void rand3_from3(float x, float y, float z, float& r0, float& r1, float& r2) {
-  r0 = sinhash(x * F(238.68) + y * F(491.28) + z * F(402.98));
-  r1 = sinhash(x * F(654.37) + y * F(560.45) + z * F(747.42));
-  r2 = sinhash(x * F(640.88) + y * F(151.81) + z * F(674.81));
+  r0 = rand3_from3_k(x, y, z, 0);
+  r1 = rand3_from3_k(x, y, z, 1);
+  r2 = rand3_from3_k(x, y, z, 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -443,7 +451,11 @@ MMT_FN float worley3_f1(float px, float py, float pz) {
   return min1;
 }
 
-MMT_FN float special_cave_noise(float px, float py, float pz) {
+// the 3-min-distance Worley ratio min3 / min1 - 1 over the 27 cells around (px, py, pz);
+// jitter(cx, cy, cz, ox, oy, oz, rx, ry, rz) gives the cell's rand3_from3, the cell being
+// (cx + ox, cy + oy, cz + oz) with (cx, cy, cz) the floor of the point
+template <class Jitter>
+MMT_FN float special_cave_search(float px, float py, float pz, Jitter jitter) {
   float ix = floorf(px), iy = floorf(py), iz = floorf(pz);
   float fx = px - ix, fy = py - iy, fz = pz - iz;
   float min1 = MMT_FLT_MAX, min2 = MMT_FLT_MAX, min3 = MMT_FLT_MAX;
@@ -451,7 +463,7 @@ MMT_FN float special_cave_noise(float px, float py, float pz) {
     for (int oy = -1; oy <= 1; ++oy)
       for (int oz = -1; oz <= 1; ++oz) {
         float rx, ry, rz;
-        rand3_from3(ix + (float)ox, iy + (float)oy, iz + (float)oz, rx, ry, rz);
+        jitter(ix, iy, iz, ox, oy, oz, rx, ry, rz);
         float dx = (float)ox + rx - fx;
         float dy = (float)oy + ry - fy;
         float dz = (float)oz + rz - fz;
@@ -464,6 +476,30 @@ MMT_FN float special_cave_noise(float px, float py, float pz) {
         min1 = is1 ? d : min1;
       }
   return min3 / min1 - 1.f;
+}
+
+// special_cave_noise hashing each of its 27 cells (27 rand3_from3, 81 sin_cr)
+MMT_FN float special_cave_noise(float px, float py, float pz) {
+  return special_cave_search(px, py, pz, [](float ix, float iy, float iz, int ox, int oy, int oz,
+                                            float& rx, float& ry, float& rz) {
+    rand3_from3(ix + (float)ox, iy + (float)oy, iz + (float)oz, rx, ry, rz);
+  });
+}
+
+// special_cave_noise with the jitters read from a table of a cell box: component k of
+// rand3_from3 at the integer cell (x0 + a, y0 + b, z0 + c) at table[k * stride + (a * ny + b)
+// * nz + c].  The box must hold the 27 cells around the point, whose coordinates must be
+// exact in f32 (|floor| < 2^24): then each cell's float is the direct path's ix + ox, and
+// the result is special_cave_noise's bit for bit.
+MMT_FN float special_cave_noise_table(float px, float py, float pz, const float* table, int stride,
+                                      int x0, int y0, int z0, int ny, int nz) {
+  return special_cave_search(px, py, pz, [=](float ix, float iy, float iz, int ox, int oy, int oz,
+                                             float& rx, float& ry, float& rz) {
+    int cell = (((int)ix + ox - x0) * ny + ((int)iy + oy - y0)) * nz + ((int)iz + oz - z0);
+    rx = table[cell];
+    ry = table[stride + cell];
+    rz = table[2 * stride + cell];
+  });
 }
 
 // ---------------------------------------------------------------------------

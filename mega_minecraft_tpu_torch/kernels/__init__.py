@@ -14,6 +14,7 @@ plain versions for CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -74,8 +75,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def _on(dev: torch.device):
+    """The context of a launch on ``dev``: a device switch only when ``dev`` is not the
+    current device (the switch costs microseconds of host time a call)."""
+    return contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+
+
 def _launch(name: str, fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    # the current stream's raw handle (torch.cuda.current_stream() builds a Stream object)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(f"kernel {name} failed to launch: cudaError_t {err}")
     LAUNCHES[name] += 1
@@ -246,13 +254,26 @@ def erosion_band(start, end, acc_in, acc_out, dst, top_edge: bool, bottom_edge: 
                 _p(tb.material_amplitude_or_tan_repose), _p(tb.dir_vecs_2d), _p(flags), int(k))
 
 
-def caves(heightfield, biome_weights, chunk_pos):
-    """K3: -> dict of [B, 16, 16, 32] i32 starts / ends / bottom_biome / top_biome."""
+#: the most cells K3's shared-memory table may be given: 3 floats a cell within the 48 KB a
+#: block gets without opting in to more
+MAX_TABLE_CELLS = 4000
+
+
+def caves(heightfield, biome_weights, chunk_pos, table_cells: int, stats=None, want_carved: bool = False):
+    """K3: -> dict of [B, 16, 16, 32] i32 starts / ends / bottom_biome / top_biome (and with
+    ``want_carved`` the carve band, [B, 16, 16, 144] bool).  ``table_cells``: the capacity of
+    the carve test's cell table (terrain/caves.py CELL_TABLE_CAP; 0 takes every tile to the
+    direct path).  ``stats``: None, or a [2] i32 tensor on the device that the launch adds
+    to: [tiles that took the direct path, the largest cell box (cells) a tile saw]."""
     dev = heightfield.device
     B = heightfield.shape[0]
     _check(heightfield, "heightfield", torch.float32, (B, 16, 16), dev)
     _check(biome_weights, "biome_weights", torch.float32, (B, N_BIOMES, 16, 16), dev)
     _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    if not 0 <= table_cells <= MAX_TABLE_CELLS:
+        raise ValueError(f"table_cells {table_cells} outside [0, {MAX_TABLE_CELLS}]")
+    if stats is not None:
+        _check(stats, "stats", torch.int32, (2,), dev)
     tb = load_tables(dev)
     carved = torch.empty((B, 256, CARVE_Y_MAX), dtype=torch.uint8, device=dev)
     out = {
@@ -263,9 +284,12 @@ def caves(heightfield, biome_weights, chunk_pos):
         with torch.cuda.device(dev):
             _launch("caves", _build.load().mmt_caves,
                     _p(heightfield), _p(biome_weights), _p(chunk_pos), B,
-                    _p(tb.cave_biome_noise_weights), _p(carved),
+                    _p(tb.cave_biome_noise_weights), int(table_cells), None if stats is None else _p(stats),
+                    _p(carved),
                     _p(out["starts"]), _p(out["ends"]), _p(out["bottom_biome"]),
                     _p(out["top_biome"]))
+    if want_carved:
+        out["carved"] = carved.view(B, 16, 16, CARVE_Y_MAX).bool()
     return out
 
 
@@ -764,7 +788,7 @@ def upscale2x(img):
     _check(img, "img", torch.float32, (H, W, 3), dev)
     out = torch.empty((2 * H, 2 * W, 3), dtype=torch.float32, device=dev)
     if H * W:
-        with torch.cuda.device(dev):
+        with _on(dev):
             _launch("upscale2x", _build.load().mmt_upscale2x, _p(img), H, W, _p(out))
     return out
 

@@ -60,8 +60,9 @@ SIGNATURES = {
     # start, end, acc_in (or null), acc_out, dst, rows, top_edge, bottom_edge, rel, tan_repose,
     # dirs, flags, k, stream (K9b)
     "mmt_erosion_band": [_P] * 5 + [_I] * 4 + [_P, _P, _P, _I, _P],
-    # hf, w, pos, B, cave_noise_w, scratch carved, out starts, ends, bottom, top, stream
-    "mmt_caves": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # hf, w, pos, B, cave_noise_w, table cells, stats, scratch carved, out starts, ends,
+    # bottom, top, stream
+    "mmt_caves": [_P, _P, _P, _I, _P, _I] + [_P] * 7,
     # hf, w, layers, starts, ends, pos, B, grass, mat_block, cave_noise_w, out blocks, stream
     "mmt_fill": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     # hf, w, layers, starts, ends, bottom_biome, top_biome, pos, B, out surface_feature,

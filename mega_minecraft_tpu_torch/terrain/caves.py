@@ -1,10 +1,11 @@
 """Stage 4: caves + cave biomes (kernel K3).
 
 Port of ``mega_minecraft_tpu/terrain/caves.py:51-254``.  ``generate_caves`` dispatches
-on the device: CUDA tensors go to ``csrc/caves.cu`` (one thread per (column, y) for
-the 3-D carve test below ``CARVE_Y_MAX``, then one warp per column for the per-column
-terms, the ballot compaction of flips and the cave biomes at the layer edges); CPU
-tensors go to the plain version, which compacts flips with a sort as JAX does.
+on the device: CUDA tensors go to ``csrc/caves.cu`` (the 3-D carve test below
+``CARVE_Y_MAX`` in tiles of 256 blocks, whose Worley cells are hashed once a tile into a
+shared-memory table of ``CELL_TABLE_CAP`` cells, then one CTA per 32 columns for the
+per-column terms, each column's flips in ascending y and the cave biomes at the layer
+edges); CPU tensors go to the plain version, which compacts flips with a sort as JAX does.
 """
 
 from __future__ import annotations
@@ -30,23 +31,50 @@ from ..tables import CARVE_Y_MAX, SEED_BOTTOM_BIOME, SEED_TOP_BIOME, Y_SIZE
 from .heightfield import column_world_coords
 
 MAX_LAYERS = bio.MAX_CAVE_LAYERS_PER_COLUMN  # 32
+#: cells of K3's shared-memory table of Worley jitters (3 floats a cell): the cell box of a
+#: tile's warped carve points with the +-1 ring.  A chunk's whole box, which holds any of
+#: its tiles' boxes, holds at most 96 cells (4 x 6 x 4) at the chunks that
+#: tests/test_torch_caves.py measures; a tile whose box is larger takes the kernel's direct
+#: path, which hashes every cell it reads.
+CELL_TABLE_CAP = 128
 
 
-def _carved(wxf, wyf, wzf, ocean_beach_weight):
-    """The 3-D 'carved' term of the cave test (caves.py:51-70)."""
+def band_coords(chunk_pos):
+    """[B, 2] -> the f32 world coordinates of the blocks below ``CARVE_Y_MAX``, broadcastable:
+    wx [B, 16, 16, 1], wy [144], wz [B, 16, 16, 1]."""
+    wx, wz = column_world_coords(chunk_pos)
+    wyf = torch.arange(CARVE_Y_MAX, dtype=torch.float32, device=chunk_pos.device)
+    return wx.to(torch.float32)[..., None], wyf, wz.to(torch.float32)[..., None]
+
+
+def carve_threshold(wxf, wyf, wzf, ocean_beach_weight):
+    """The threshold of the 3-D 'carved' term (caves.py:51-70): where it is <= 0.04 no
+    block is carved, whatever the Worley noise."""
     nx = wxf * 0.0050
     ny = wyf * 0.0050
     nz = wzf * 0.0050
     top_ratio = smoothstep(142.0, 95.0, wyf + ocean_beach_weight * 50.0)
     bottom_ratio = smoothstep(5.0, 20.0, wyf)
-
-    ox, oy, oz = fbm3_from3(nx * 0.8, ny * 0.8, nz * 0.8, octaves=5)
-    cave_noise = special_cave_noise(nx + ox * 1.8, ny * 1.6 + oy * 1.8, nz + oz * 1.8)
-
     thr = 0.24 + 0.12 * fbm3(nx * 4.0, ny * 4.0, nz * 4.0, octaves=4)
     huge = smoothstep(0.2, 0.4, fbm3(nx * 0.07, ny * 0.07, nz * 0.07, octaves=4))
     thr = thr * (1.0 + 1.4 * huge)
-    thr = thr * top_ratio * (0.3 + 0.7 * bottom_ratio)
+    return thr * top_ratio * (0.3 + 0.7 * bottom_ratio)
+
+
+def carve_warp(wxf, wyf, wzf):
+    """The domain-warped point at which the carve test's Worley search centres (caves.py:
+    57-59): three tensors, in Worley cells."""
+    nx = wxf * 0.0050
+    ny = wyf * 0.0050
+    nz = wzf * 0.0050
+    ox, oy, oz = fbm3_from3(nx * 0.8, ny * 0.8, nz * 0.8, octaves=5)
+    return nx + ox * 1.8, ny * 1.6 + oy * 1.8, nz + oz * 1.8
+
+
+def _carved(wxf, wyf, wzf, ocean_beach_weight):
+    """The 3-D 'carved' term of the cave test (caves.py:51-70)."""
+    cave_noise = special_cave_noise(*carve_warp(wxf, wyf, wzf))
+    thr = carve_threshold(wxf, wyf, wzf, ocean_beach_weight)
     return (thr > 0.04) & (cave_noise < thr)
 
 
@@ -138,6 +166,12 @@ def get_cave_biome(wx, wy, wz, max_height, seed: int):
     return out.to(torch.int32)
 
 
+def carve_band_plain(biome_weights, chunk_pos):
+    """The 3-D carve test of every block below ``CARVE_Y_MAX``: [B, 24, 16, 16], [B, 2] ->
+    [B, 16, 16, 144] bool (K3's carve band)."""
+    return _carved(*band_coords(chunk_pos), ocean_beach_weight(biome_weights)[..., None])
+
+
 def generate_caves_plain(heightfield, biome_weights, chunk_pos):
     """Plain stage 4: [B,16,16], [B,24,16,16], [B,2] -> dict of [B,16,16,32] i32
     starts (384 = none), ends (384 = open to sky), bottom_biome, top_biome."""
@@ -148,9 +182,7 @@ def generate_caves_plain(heightfield, biome_weights, chunk_pos):
     wyf = wy.to(torch.float32)
     obw = ocean_beach_weight(biome_weights)
 
-    wxf = wx.to(torch.float32)[..., None]
-    wzf = wz.to(torch.float32)[..., None]
-    carved_band = _carved(wxf, wyf[:CARVE_Y_MAX], wzf, obw[..., None])
+    carved_band = carve_band_plain(biome_weights, chunk_pos)
     carved = torch.zeros((B, 16, 16, Y_SIZE), dtype=torch.bool, device=dev)
     carved[..., :CARVE_Y_MAX] = carved_band
     above_surface = wyf > torch.clamp_min(torch.floor(heightfield[..., None]), float(bio.SEA_LEVEL))
@@ -185,6 +217,6 @@ def generate_caves_plain(heightfield, biome_weights, chunk_pos):
 def generate_caves(heightfield, biome_weights, chunk_pos):
     """Stage 4: K3 on CUDA, the plain version on the CPU."""
     if heightfield.is_cuda:
-        return kernels.caves(heightfield, biome_weights, chunk_pos)
+        return kernels.caves(heightfield, biome_weights, chunk_pos, CELL_TABLE_CAP)
     kernels.require_cpu(heightfield)
     return generate_caves_plain(heightfield, biome_weights, chunk_pos)

@@ -2,7 +2,9 @@
 the 1x1-chunk area at the golden chunk (592, -368) against the plain versions on the
 CPU, K1-K8 for the featured 5x5 bench area against the plain chain run on the card, K9
 on the two ``golden_erosion.npz`` grids against the plain erosion on the CPU (bit for
-bit, with the same sweep counts), and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
+bit, with the same sweep counts), K3 with its Worley cell table and with every tile on
+its direct path, bit for bit against the plain version (cave arrays and carve band) at
+the golden chunks and two far ones, and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
 K7's pre-kernel, K4, K7s, K8) whose filled chunks must equal the featured area path
 over all their sources.  The render path: K10 (scene fields, bit for bit), K11t (the
 DDA of 1080p-camera primary rays: hit, block, normal and t equal), K11 (a 64x64 tile of
@@ -14,8 +16,9 @@ bits, K11t's exact park-and-resolve and stochastic pass-through on rays aimed at
 voxels, K11 in both trace modes with a camera aimed at one); and one launch each of K11
 and K12 per ``render_accumulate``.  The engine's frame path: K10u (``update_chunks``: a
 3x3 bucket into that scene, a removal and an edge bucket, bit for bit, in place), K13 and
-K13s (the blends after a moved and a static camera), K14 (with and without nsamp), K15 and
-K16, each bit for bit against its plain version on the card, and one engine tick /
+K13s (the blends after a moved and a static camera), K14 (with and without nsamp), K15 (also
+at 1x1, 5x3, 9x7 and 960x540) and K16, each bit for bit against its plain version on the
+card, and one engine tick /
 present on the card with its launch counts.  The debug renderer: K17 against
 ``render_debug_plain`` bit for bit (and its DDA step counts) on the box scene of
 ``tests/test_render.py`` at 128x96, day with every tint, night, and with glowstone boxes
@@ -230,6 +233,29 @@ def test_featured_5x5_matches_plain_chain_on_gpu(cuda_device):
         for field, value in lists[kind].items():
             assert torch.equal(out["placements"][kind][field], value), (kind, field)
     assert torch.equal(out["blocks"], want)
+
+
+#: chunk origins (blocks) of K3's carve checks: the golden chunks and two far ones
+CARVE_CHUNKS = [(0, 0), (592, -368), (-1024, 2048), (4096, 4096), (-160, -160), (1048576, -1048576),
+                (-2000000, 3000000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_cells", [caves.CELL_TABLE_CAP, 0], ids=["table", "direct"])
+def test_carve_kernel_matches_plain_on_gpu(cuda_device, table_cells):
+    """K3 with its cell table and with every tile on the direct path (capacity 0), bit for
+    bit against the plain version: the four cave arrays and the carve band."""
+    pos = torch.tensor(CARVE_CHUNKS, dtype=torch.int32, device=cuda_device)
+    hf, w = kernels.heightfield(pos)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = kernels.caves(hf, w, pos, table_cells, stats, want_carved=True)
+    direct, largest = stats.tolist()
+    want = caves.generate_caves_plain(hf, w, pos)
+    assert torch.equal(got.pop("carved"), caves.carve_band_plain(w, pos))
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+    assert 27 <= largest <= caves.CELL_TABLE_CAP
+    assert (direct == 0) if table_cells else (direct > 0)
 
 
 @pytest.mark.cuda
@@ -482,6 +508,22 @@ def test_present_path_kernels_match_plain_on_gpu(cuda_device):
     assert float(((up - lib).abs() / lib.abs().clamp(min=1e-6)).max()) <= 1e-6
     hdr = torch.cat([color.reshape(-1), torch.linspace(0.0, 50.0, 30000, device=cuda_device)]).reshape(-1, 1, 3)
     assert torch.equal(tonemap.present(hdr), tonemap.present_plain(hdr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (7, 9), (540, 960)], ids=str)
+def test_upscale2x_kernel_matches_plain_on_gpu(cuda_device, size):
+    """K15 bit for bit at odd sizes, widths that are no multiple of its 4-pixel run and the
+    fly-through's 960x540; within 1e-6 of torch's bilinear interpolate."""
+    img = torch.as_tensor(np.random.default_rng(5).random((*size, 3), dtype=np.float32) * 4.0,
+                          device=cuda_device)
+    kernels.reset_launch_counts()
+    up = denoise.upscale2x(img)
+    assert kernels.launch_counts()["upscale2x"] == 1
+    assert torch.equal(up.view(torch.int32), denoise.upscale2x_plain(img).view(torch.int32))
+    lib = torch.nn.functional.interpolate(img.permute(2, 0, 1)[None], scale_factor=2, mode="bilinear",
+                                          align_corners=False)[0].permute(1, 2, 0)
+    assert float(((up - lib).abs() / lib.abs().clamp(min=1e-6)).max()) <= 1e-6
 
 
 @pytest.mark.cuda

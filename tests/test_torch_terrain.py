@@ -220,7 +220,7 @@ def test_stage_on_unsupported_device_raises():
         lambda: kernels.heightfield(torch.zeros((1, 2), dtype=torch.int64)),
         lambda: kernels.heightfield(torch.zeros((1, 3), dtype=torch.int32)),
         lambda: kernels.caves(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
-                              torch.zeros((2, 2), dtype=torch.int32)),
+                              torch.zeros((2, 2), dtype=torch.int32), caves.CELL_TABLE_CAP),
         lambda: kernels.fill(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
                              torch.zeros((1, 20, 16, 16)).transpose(2, 3),
                              torch.zeros((1, 16, 16, 32), dtype=torch.int32),
@@ -232,8 +232,13 @@ def test_stage_on_unsupported_device_raises():
         lambda: kernels.erosion_band(*(torch.zeros((50, 384)),) * 3, torch.zeros((50, 383)),
                                      torch.zeros((50, 384)), False, False, 7,
                                      torch.zeros(2, dtype=torch.int32), 0),
+        lambda: kernels.caves(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
+                              torch.zeros((1, 2), dtype=torch.int32), -1),
+        lambda: kernels.caves(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
+                              torch.zeros((1, 2), dtype=torch.int32), kernels.MAX_TABLE_CELLS + 1),
     ],
-    ids=["dtype", "shape", "batch", "contiguity", "halo-shape", "dp-layers-dtype", "erosion-band-shape"],
+    ids=["dtype", "shape", "batch", "contiguity", "halo-shape", "dp-layers-dtype", "erosion-band-shape",
+         "caves-table-cells", "caves-table-too-large"],
 )
 def test_kernel_wrappers_validate_before_launch(call):
     before = kernels.launch_counts()
