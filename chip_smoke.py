@@ -15,6 +15,13 @@ Phases, each of which raises (non-zero exit) on failure:
      (``terrain/caves.py`` ``CELL_TABLE_CAP`` cells) and with a table of 0 cells, so that
      every tile takes its direct path, each bit for bit on the four cave arrays and the
      carve band, with the tiles that took the direct path and the largest cell box printed;
+     K4 likewise here and wherever it is checked below, on its lush-cave cell table
+     (``tables.LUSH_TABLE_CELLS``) and with a table of 0 cells, with its stats printed (blocks
+     queued for the cave biome, lush blocks, largest cell box, tiles on the direct path), also
+     on three far chunks (the last past |x| = 671,088,640, its clay cells past 2^24); K7's
+     pre-pass lists (each chunk's culled gathered entries) against ``features.cull_area_plain``
+     wherever K7 is checked, with the candidate counts printed (visible entries, survivors);
+     and K7 on synthetic lists that overflow K6's list, the gather cap and cross-chunk priority;
   4. hold K1-K3 against ``tests/golden/golden_chunks.npz`` and the featured 7x7 areas
      around the four chunks of ``tests/golden/golden_blockgrid.npz`` against its
      ``pre_*`` (fill + features) and ``post_*`` (after decorators) centre chunks, at
@@ -26,11 +33,11 @@ Phases, each of which raises (non-zero exit) on failure:
      the same inputs; the featureless 5x5 run likewise, which must equal the middle of
      the featureless 33x33 run bit for bit; then the featured 33x33 area, whose middle
      5x5 chunks must equal those of a featured 11x11 run (both see full 49-chunk
-     neighbourhoods), and bedrock at y = 0 in every column; K3 against its plain version
-     at the 5x5 and the 33x33 shapes;
+     neighbourhoods), and bedrock at y = 0 in every column; K3, K4 and K7 (its blocks and
+     its pre-pass lists) against their plain versions at the 5x5 and the 33x33 shapes;
   6. time the slices, the feature half and every kernel (and its plain version at the
-     5x5 shapes) warm with CUDA events, K3's device time under torch.profiler, and compute
-     every kernel's bound;
+     5x5 shapes) warm with CUDA events, K3's, K4's and K7's device time under torch.profiler,
+     and compute every kernel's bound (K4's also with every lush block hashing its cells);
   7. hold K9 (zone erosion) against its plain version bit for bit, with the same sweep
      counts, and against ``tests/golden/golden_erosion.npz`` at tests/test_golden.py's
      gate; generate the eroded featured 24x24 area through ``pipeline.generate_area(...,
@@ -44,8 +51,9 @@ Phases, each of which raises (non-zero exit) on failure:
   9. drain the reference workload, ``make_scheduler(radius=None, skip_erosion=False,
      native=True)`` (the radius-40 spiral, 1,089 drawable chunks), with the counts reset
      around it; replay its first zone erosion through the plain versions; K3 against its
-     plain version on its largest caves batch; time K2s and K7s at its largest batches
-     against their plain versions; drain it again with the
+     plain version on its largest caves batch, K4, K7s and K7s's pre-pass lists on its largest
+     fill batch; time K2s and K7s at its largest batches against their plain versions (K7s's
+     device time too); drain it again with the
      ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share;
  10. the render path's main run, as bench_render.py drives it, with the counts reset just
      before and read just after: ``brickmap.build_scene`` of the 10x10 bench scene (four
@@ -168,6 +176,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "golden_chunks.npz"
 GOLDEN_CHUNKS = [(0, 0), (592, -368), (-1024, 2048), (4096, 4096), (-160, -160)]
+#: K4's far chunks (blocks), the last past |x| = 671,088,640 (lush clay cells past 2^24)
+FAR_CHUNKS = [(1048576, -1048576), (-2000000, 3000000), (671089664, -671092736)]
 SEED = 20261016
 
 KERNELS = {  # name -> (source, the JAX program it replaces)
@@ -410,6 +420,27 @@ def carve_work(biome_weights, chunk_pos, step=256):
     return n_active, n_cells, n_cells_all
 
 
+def lush_work(base_blocks, chunk_pos, step=256):
+    """(lush blocks, distinct Worley cells) of the chunks' lush caves' clay tests, by the plain
+    noise of ``terrain/fill.py``: the blocks below y = 192 that the clay test made clay or moss,
+    and the cells their 27-cell F1 searches read, summed over the chunks (each chunk's once)."""
+    from mega_minecraft_tpu_torch.terrain import fill
+    from mega_minecraft_tpu_torch.terrain.heightfield import column_world_coords
+    from mega_minecraft_tpu_torch.world.blocks import Block
+
+    n_lush = n_cells = 0
+    wyf = torch.arange(192, dtype=torch.float32, device=chunk_pos.device)
+    for i in range(0, chunk_pos.shape[0], step):
+        low = base_blocks[i : i + step, ..., :192]
+        lush = ((low == int(Block.CLAY)) | (low == int(Block.MOSS))).reshape(low.shape[0], -1)
+        wx, wz = column_world_coords(chunk_pos[i : i + step])
+        pts = fill.lush_clay_point(wx.to(torch.float32)[..., None], wyf, wz.to(torch.float32)[..., None])
+        cells = torch.stack([torch.floor(c) for c in pts], dim=-1)
+        n_lush += int(lush.sum())
+        n_cells += int(distinct_cells(cells.to(torch.int64).reshape(low.shape[0], -1, 3), lush).sum())
+    return n_lush, n_cells
+
+
 def check_k3(tag, hf, w, pos, step=256):
     """K3 on its cell table (``terrain/caves.py`` ``CELL_TABLE_CAP`` cells) and with every tile
     on the direct path (capacity 0), each bit for bit against the plain version on the same
@@ -436,6 +467,63 @@ def check_k3(tag, hf, w, pos, step=256):
             mx = max(mx, check_equal(f"K3 {tag} {k} (table {cap})", got[k], want[k]))
         check(cap > 0 or direct > 0, f"K3 {tag}: no tile took the direct path with no table")
         check(cap == 0 or direct == 0, f"K3 {tag}: {direct} tiles took the direct path with the table")
+    return mx
+
+
+def fill_k(*args, **kw):
+    """K4 (``kernels.fill``) on its lush-cave cell table (``tables.LUSH_TABLE_CELLS`` cells)."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.tables import LUSH_TABLE_CELLS
+
+    return kernels.fill(*args, LUSH_TABLE_CELLS, **kw)
+
+
+def check_k4(tag, hf, w, ls, starts, ends, pos, step=256):
+    """K4 on its lush-cave cell table and with every tile on the direct path (capacity 0),
+    each bit for bit against the plain version on the same inputs (run ``step`` chunks at a
+    time).  Prints both runs' stats (blocks queued for the cave biome, lush blocks, largest
+    cell box, tiles on the direct path); fails if a tile took the direct path with the table.
+    Returns the max |diff|."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.tables import FILL_TILE_COLS, LUSH_TABLE_CELLS
+    from mega_minecraft_tpu_torch.terrain import fill
+
+    B = pos.shape[0]
+    want = torch.cat([fill.fill_chunks_plain(hf[i : i + step], w[i : i + step], ls[i : i + step],
+                                             starts[i : i + step], ends[i : i + step], pos[i : i + step])
+                      for i in range(0, B, step)])
+    mx = 0.0
+    for cap in (LUSH_TABLE_CELLS, 0):
+        stats = torch.zeros(4, dtype=torch.int32, device=pos.device)
+        got = kernels.fill(hf, w, ls, starts, ends, pos, cap, stats)
+        queued, lush, largest, direct = stats.tolist()
+        print(f"  K4 {tag}, a table of {cap} cells: {queued} of {B * 98304} blocks queued for the cave "
+              f"biome ({queued / (B * 98304):.4f}), {lush} lush ({lush / (B * 98304):.5f}); largest cell box "
+              f"{largest} cells; {direct} of {B * 256 // FILL_TILE_COLS} tiles took the direct path")
+        mx = max(mx, check_equal(f"K4 {tag} (table {cap})", got, want))
+        check(cap == 0 or direct == 0, f"K4 {tag}: {direct} tiles took the direct path with the table")
+        check(cap > 0 or (direct > 0) == (lush > 0), f"K4 {tag}: {direct} direct tiles with no table, {lush} lush")
+    return mx
+
+
+def check_k7_lists(tag, got_lists, want_of, n_chunks):
+    """The pre-pass's culled lists (``kernels.features(..., want_lists=True)`` / ``features_slots``)
+    against their plain version, bit for bit (lengths, and each chunk's entries up to its
+    length); ``want_of(kind, cull)`` gives the plain (lists, lengths).  Prints the candidate
+    counts: the visible gathered entries and the survivors, per chunk.  Returns max |diff|."""
+    mx = 0.0
+    for kind in ("surface", "cave"):
+        k_lists, k_len = got_lists[kind]
+        p_lists, p_len = want_of(kind, True)
+        mx = max(mx, check_equal(f"{tag} K7 pre-pass {kind} lengths", k_len.cpu(), p_len))
+        keep = torch.arange(p_lists.shape[1])[None, :] < p_len[:, None]
+        mx = max(mx, check_equal(f"{tag} K7 pre-pass {kind} entries", k_lists.cpu()[keep][:, :7],
+                                 p_lists[keep][:, :7]))
+        visible = want_of(kind, False)[1]
+        print(f"  {tag} K7 {kind} candidates: {int(visible.sum())} visible gathered entries "
+              f"({float(visible.double().mean()):.1f} a chunk, max {int(visible.max())}), "
+              f"{int(p_len.sum())} survive the cull ({float(p_len.double().mean()):.1f} a chunk, max "
+              f"{int(p_len.max())}) over {n_chunks} chunks")
     return mx
 
 
@@ -492,11 +580,20 @@ def op_counts(n, pos_halo, w_halo, out, lists, names):
     low = out["base_blocks"][..., :192]
     stone_like = int(torch.isin(low, torch.tensor([int(b) for b in fam], dtype=low.dtype,
                                             device=low.device)).sum())
-    lush = int(((low == int(Block.CLAY)) | (low == int(Block.MOSS))).sum())
-    k4 = B * 98304 * 490 + cols * 7 * fbm2_ops(3) + stone_like * CAVE_BIOME \
-        + lush * (SIMPLEX3 + 3 * fbm3_ops(3) + WORLEY3)
+    # the lush blocks' clay test: the warp and the Worley F1, whose 27 cells' jitters depend on the
+    # integer cell alone: three hashes for each distinct cell that a chunk's lush blocks read, not
+    # 81 a block (as K3's bound counts its carve search)
+    lush, lush_cells = lush_work(out["base_blocks"], out["chunk_pos"])
+    clay = SIMPLEX3 + 3 * fbm3_ops(3) + WORLEY3 - 81 * SINHASH
+    k4 = B * 98304 * 490 + cols * 7 * fbm2_ops(3) + stone_like * CAVE_BIOME + lush * clay \
+        + lush_cells * 3 * SINHASH
     res["fill"] = (nbytes(out["heightfield"], out["biome_weights"], out["layers"], cv["starts"],
                           cv["ends"], out["chunk_pos"], out["base_blocks"]), k4)
+    k4_before = bound(res["fill"][0], k4 - lush_cells * 3 * SINHASH + lush * 81 * SINHASH)
+    print(f"    K4's bound: {stone_like} stone-like blocks below y = 192 ({stone_like / (B * 98304):.4f}), {lush} "
+          f"lush ({lush / (B * 98304):.5f}) reading {lush_cells} distinct Worley cells "
+          f"({lush_cells / B:.1f} a chunk): {bound(*res['fill'])[0]:.4g} ms; every lush block hashing its 81 "
+          f"sins {k4_before[0]:.4g} ms by {k4_before[1]}")
     # K5: the layer walk and biome pick per column, two sin-hashes per placed feature
     placed = int(lists["surface"]["count"].sum()) + int(lists["cave"]["count"].sum())
     grids = nbytes(out["placement_grids"])  # K5's outputs, K6's inputs
@@ -672,7 +769,7 @@ def stream_phase(dev, stamp, err, smi):
         rows = sl.long()
         hf, w, ls = t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows]
         cs, ce, cb = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends", "bottom"))
-        base = kernels.fill(hf, w, ls, cs, ce, pos)
+        base = fill_k(hf, w, ls, cs, ce, pos)
         got = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
         want = features.apply_features_slots_plain(base, t.d_sf, t.d_cf, nsl, pos)
         n_feat = int((want != base).sum())
@@ -689,7 +786,7 @@ def stream_phase(dev, stamp, err, smi):
         sl, pos, nsl = t.upload(sl_np, pos_np, nb_np)
         rows = sl.long()
         cs, ce = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends"))
-        base = kernels.fill(t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows], cs, ce, pos)
+        base = fill_k(t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows], cs, ce, pos)
         a = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
         b = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos, cull=False)
         n_chunks += len(sl_np)
@@ -751,8 +848,15 @@ def time_stream_kernels(dev, t, log, err, times, bounds, smi):
     rows = sl.long()
     hf, w, ls = t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows]
     cs, ce, cb = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends", "bottom"))
-    base = kernels.fill(hf, w, ls, cs, ce, pos)
-    got = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
+    err["fill"] = max(err["fill"], check_k4(f"on the drain's largest fill batch ({len(sl_np)} chunks)",
+                                            hf, w, ls, cs, ce, pos))
+    base = fill_k(hf, w, ls, cs, ce, pos)
+    got, got_lists = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos,
+                                            want_lists=True)
+    err["features_slots"] = max(err["features_slots"], check_k7_lists(
+        f"the drain's largest fill batch ({len(sl_np)} chunks)", got_lists,
+        lambda kind, cull: features.cull_slots_plain(t.d_sf if kind == "surface" else t.d_cf, nsl, pos,
+                                                     kind == "cave", cull), len(sl_np)))
     t1 = time.perf_counter()
     want = features.apply_features_slots_plain(base, t.d_sf, t.d_cf, nsl, pos)
     torch.cuda.synchronize()
@@ -765,6 +869,9 @@ def time_stream_kernels(dev, t, log, err, times, bounds, smi):
           "K7s + K8 on the drain's largest fill batch differ from the drain's blocks")
     ms = cuda_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl,
                                                 pos), 20)
+    dev_ms = device_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos),
+                       {"cull_kernel": 1, "features_kernel": 1}, 20)
+    print(f"  K7s on the device: {fmt_ms(dev_ms)} (cull, columns: {dev_ms[0]})")
     times["features_slots"] = (ms, plain_s * 1e3)
     bounds["features_slots"] = bound(*k7s_counts(t, nsl, pos, base))
     print(f"  K7s on {smi}: {ms:.4f} ms for {len(sl_np)} chunks, plain {plain_s * 1e3:.1f} ms, bound "
@@ -1945,8 +2052,7 @@ def sharded_phase(dev, stamp, err, smi, sc):
                                                                  device=dev), DP_AREA[2], DP_AREA[3])
     check(torch.equal(area["chunk_pos"], pos), "the area path's chunk order differs")
     empty = torch.full((pos.shape[0], 16, 16, 32), 384, dtype=torch.int32, device=dev)
-    want_blocks = kernels.fill(area["heightfield"], area["biome_weights"], area["layers"], empty,
-                               empty, pos)
+    want_blocks = fill_k(area["heightfield"], area["biome_weights"], area["layers"], empty, empty, pos)
     for n in (1, 4):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -2167,12 +2273,16 @@ def main(argv):
             sub = {kind: {k: v[i0 : i0 + nb].contiguous() for k, v in d.items()}
                    for kind, d in lists_p.items()}
             a = (bl_p[i0 : i0 + nb].contiguous(), sub["surface"], sub["cave"])
-            want = features.apply_features_area_plain(*a, pos_in[i0 : i0 + nb], ncx, ncz)
-            got = kernels.features(*a, st_p[0][i0 : i0 + nb].contiguous(),
-                                   st_p[1][i0 : i0 + nb].contiguous(),
-                                   pos_in[i0 : i0 + nb].contiguous(), ncx, ncz)
+            pos_a = pos_in[i0 : i0 + nb].contiguous()
+            want = features.apply_features_area_plain(*a, pos_a, ncx, ncz)
+            got, got_lists = kernels.features(*a, st_p[0][i0 : i0 + nb].contiguous(),
+                                              st_p[1][i0 : i0 + nb].contiguous(), pos_a, ncx, ncz,
+                                              want_lists=True)
             n_feat = int((want != a[0]).sum())
-            e7 = max(e7, check_equal(f"{tag} K7 area@{i0} ({n_feat} feature blocks)", got, want))
+            e7 = max(e7, check_equal(f"{tag} K7 area@{i0} ({n_feat} feature blocks)", got, want),
+                     check_k7_lists(f"{tag} area@{i0}", got_lists,
+                                    lambda kind, cull: features.cull_area_plain(
+                                        sub[kind], pos_a, ncx, ncz, kind == "cave", cull), nb))
             feat_p.append(want)
         feat_p = torch.cat(feat_p)
         args8 = (feat_p, hf_in, w_in, cv_p["starts"], cv_p["ends"], cv_p["bottom_biome"], pos_in)
@@ -2207,9 +2317,18 @@ def main(argv):
     cv_p = caves.generate_caves_plain(hf_in, w_in, pos_in)
     err["caves"] = check_k3("on the golden and seeded chunks", hf_in, w_in, pos_in)
 
-    bl_k = kernels.fill(hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], pos_in)
     bl_p = fill.fill_chunks_plain(hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], pos_in)
-    err["fill"] = check_equal("K4 blocks", bl_k, bl_p)
+    err["fill"] = check_k4("on the golden and seeded chunks", hf_in, w_in, ls_in, cv_p["starts"],
+                           cv_p["ends"], pos_in)
+    # K4 at far chunks, the last one's lush clay cells past 2^24 (their floats round)
+    st_f = []
+    for ox, oz in FAR_CHUNKS:
+        ph = halo_positions(ox, oz, dev)
+        st_f.append(layers.layers_from_halo_plain(*heightfield.generate_heightfield_plain(ph), ph, 1, 1))
+    hf_f, w_f, ls_f, pos_f = (cat(st_f, k) for k in ("heightfield", "biome_weights", "layers", "chunk_pos"))
+    cv_f = caves.generate_caves_plain(hf_f, w_f, pos_f)
+    err["fill"] = max(err["fill"], check_k4(f"on the far chunks {FAR_CHUNKS}", hf_f, w_f, ls_f, cv_f["starts"],
+                                            cv_f["ends"], pos_f))
 
     stage_checks("7 chunks", hf_in, w_in, ls_in, cv_p, pos_in, bl_p,
                  [(i, 1, 1) for i in range(len(origins))])
@@ -2381,7 +2500,7 @@ def main(argv):
     err["caves"] = max(err["caves"], check_k3("at the 5x5 shapes", *in3))
     in4 = (*in3[:2], st_p["layers"], cv_p["starts"], cv_p["ends"], in3[2])
     plain5 = fill.fill_chunks_plain(*in4)
-    err["fill"] = max(err["fill"], check_equal("K4 blocks", kernels.fill(*in4), plain5))
+    err["fill"] = max(err["fill"], check_k4("at the 5x5 shapes", *in4))
     lists_p, feat_p, dec_p = stage_checks("5x5", in3[0], in3[1], st_p["layers"], cv_p, in3[2],
                                           plain5, [(0, 5, 5)])
 
@@ -2439,6 +2558,22 @@ def main(argv):
     del out11, mid11, mid33, inner
     err["caves"] = max(err["caves"], check_k3("at the 33x33 shapes", out33["heightfield"],
                                               out33["biome_weights"], out33["chunk_pos"]))
+    cv33, pos33_in = out33["caves"], out33["chunk_pos"]
+    err["fill"] = max(err["fill"], check_k4("at the 33x33 shapes", out33["heightfield"], out33["biome_weights"],
+                                            out33["layers"], cv33["starts"], cv33["ends"], pos33_in))
+    # K7 at the 33x33 shapes: its pre-pass lists and its blocks against the plain versions
+    lists33 = out33["placements"]
+    got33, lists33_k = kernels.features(base33["blocks"], lists33["surface"], lists33["cave"],
+                                        *kernels.feature_streams(lists33["surface"], lists33["cave"]),
+                                        pos33_in, 33, 33, want_lists=True)
+    err["features"] = max(err["features"], check_k7_lists(
+        "33x33", lists33_k, lambda kind, cull: features.cull_area_plain(lists33[kind], pos33_in, 33, 33,
+                                                                       kind == "cave", cull), 33 * 33))
+    want33 = features.apply_features_area_plain(base33["blocks"], lists33["surface"], lists33["cave"],
+                                                pos33_in, 33, 33)
+    err["features"] = max(err["features"], check_equal(
+        f"K7 at the 33x33 shapes ({int((want33 != base33['blocks']).sum())} feature blocks)", got33, want33))
+    del got33, lists33_k, want33
 
     # -- 6. timing (warm, CUDA events) ----------------------------------------------------
     stamp("phase 6: timing")
@@ -2449,7 +2584,7 @@ def main(argv):
         cv = kernels.caves(st["heightfield"], st["biome_weights"], st["chunk_pos"], caves.CELL_TABLE_CAP)
         args_fill = (st["heightfield"], st["biome_weights"], st["layers"], cv["starts"],
                      cv["ends"], st["chunk_pos"])
-        base_blocks = kernels.fill(*args_fill)
+        base_blocks = fill_k(*args_fill)
         args5 = (*args_fill[:3], cv["starts"], cv["ends"], cv["bottom_biome"], cv["top_biome"],
                  st["chunk_pos"])
         grids = kernels.placements(*args5)
@@ -2466,7 +2601,7 @@ def main(argv):
                        lambda: layers.layers_from_halo_plain(hf, w, pos, n, n)),
             "caves": (lambda: kernels.caves(*args_fill[:2], args_fill[5], caves.CELL_TABLE_CAP),
                       lambda: caves.generate_caves_plain(*args_fill[:2], args_fill[5])),
-            "fill": (lambda: kernels.fill(*args_fill),
+            "fill": (lambda: fill_k(*args_fill),
                      lambda: fill.fill_chunks_plain(*args_fill)),
             "placements": (lambda: kernels.placements(*args5),
                            lambda: fp.generate_placements_plain(*args5)),
@@ -2496,6 +2631,8 @@ def main(argv):
                                                         st["chunk_pos"], n, n), reps)
         times[("slice", n)] = (full_ms, None)
         k3_dev = device_ms(calls["caves"][0], {"carve_kernel": 1, "column_kernel": 1}, max(reps, 10))
+        k4_dev = device_ms(calls["fill"][0], {"fill_kernel": 1}, max(reps, 10))
+        k7_dev = device_ms(calls["features"][0], {"cull_kernel": 1, "features_kernel": 1}, max(reps, 10))
         counted = {"base_blocks": base_blocks, "caves": cv, "placement_grids": grids, **st}
         bounds[n] = {k: bound(*v) for k, v in
                      op_counts(n, pos, w, counted, lists, AREA_KERNELS).items()}
@@ -2504,6 +2641,8 @@ def main(argv):
               f"{n * n / (base_ms / 1e3):.1f} chunks/s; feature half {half_ms:.3f} ms "
               f"({half_ms / full_ms:.1%} of the featured slice)")
         print(f"    caves (K3) on the device: {fmt_ms(k3_dev)} (carve, column: {k3_dev[0]})")
+        print(f"    fill (K4) on the device: {fmt_ms(k4_dev)}; features (K7) on the device: {fmt_ms(k7_dev)} "
+              f"(cull, columns: {k7_dev[0]})")
         for name in AREA_KERNELS:
             k, pl_ms = times[(name, n)]
             b_ms, b_by = bounds[n][name]

@@ -118,8 +118,7 @@ carve_kernel(const float* __restrict__ w, const int* __restrict__ pos, int table
   bool active = thr > F(0.04);
   float px = 0.f, py = 0.f, pz = 0.f;
   if (active) carve_warp(nx, ny, nz, px, py, pz);
-  // |floor| < 2^24 (int32 chunk positions give |nx| <= 1.1e7), so the table's float cell
-  // x0 + a is the direct path's ix + ox exactly
+  // the table is keyed by the integer cell (mmt_math.cuh TableJitter)
   int cx = (int)floorf(px), cy = (int)floorf(py), cz = (int)floorf(pz);
 
   // (b) the cell box of the tile's active blocks, with the +-1 ring
@@ -155,15 +154,7 @@ carve_kernel(const float* __restrict__ w, const int* __restrict__ pos, int table
     int seen = cells > INT_MAX ? INT_MAX : (int)cells;
     if (seen > *(volatile int*)&stats[1]) atomicMax(&stats[1], seen);
   }
-  if (!direct) {
-    const int n = (int)cells, ny_ = (int)nyc, nz_ = (int)nzc;
-    for (int i = t; i < 3 * n; i += CARVE_THREADS) {
-      int k = i / n, cell = i - k * n;
-      int a = cell / (ny_ * nz_), rem = cell - a * (ny_ * nz_);
-      int bb = rem / nz_, cc = rem - bb * nz_;
-      table[i] = rand3_from3_k((float)(x0 + a), (float)(y0 + bb), (float)(z0 + cc), k);
-    }
-  }
+  if (!direct) fill_jitter_table(table, (int)cells, x0, y0, z0, (int)nyc, (int)nzc, t, CARVE_THREADS);
   __syncthreads();
 
   // (c) the Worley ratio on the table (or hashed, on the direct path)

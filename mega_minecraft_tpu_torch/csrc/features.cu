@@ -10,40 +10,39 @@
 // windowed whole-volume SDF evaluations with a packed min-key combine, because SIMD
 // lanes cannot leave a loop early.  Threads can: here the loop is the reference's own.
 //
-// One CUDA block per column of the area, one thread per y (384 threads).  The voxel's
-// winner is the first placement, in its consumer chunk's 49-source spiral order and then
-// list slot, whose window holds the column, whose height bounds hold y, whose terrain
-// test passes (AIR or replace) and whose SDF hits; the index in the consumer's gathered
-// list runs on the TRUE per-chunk counts, and entries at index >= 2,048 (surface) /
-// 4,096 (cave) are invisible to this consumer.  Surface placements first; the cave pass
-// runs only for voxels no surface placement took, and both test the TERRAIN block.
+// A voxel's winner is the first placement, in its consumer chunk's gathered list (49-source
+// spiral order, then list slot), whose window holds the column, whose height bounds hold y,
+// whose terrain test passes (AIR or replace) and whose SDF hits.  The index in the gathered
+// list runs on the TRUE per-chunk counts (K7) or on min(count, K) (K7s, the valid entries
+// the slot table's lists hold; the two differ only for a list that overflows its K); entries
+// at index >= 2,048 (surface) / 4,096 (cave) are invisible to the consumer.  Surface
+// placements first; the cave pass runs only for voxels no surface placement took, and both
+// test the TERRAIN block.
 //
-// The window test depends on the column alone, so the block makes it once for all its
-// voxels: 49 threads read the sources' counts, thread 0 lays the visible part of each
-// source's list end to end (49 offsets),
-// the 384 threads test 384 gathered entries at a time and compact the survivors, in
-// gathered order, into shared memory (warp ballots and a 12-warp prefix), and every
-// thread then walks only the survivors -- a handful instead of the hundreds in reach.
-// The buffer is flushed (walked and emptied) whenever it could not take another batch,
-// so any number of survivors is handled.  The per-block RNG is re-seeded for every
-// evaluation, so it is computed once per pass and handed to each feature function by value.
+// Two launches (one count):
+//   1. cull_kernel, one CTA per consumer chunk and kind: the 49 sources' visible counts and
+//      offsets by two warp scans; then every visible entry, in gathered order, whose XZ window
+//      (SURFACE_WINDOW / CAVE_WINDOW) meets the chunk's 16 x 16 columns is written, with what
+//      the walk reads (Candidate: position, stream row, feature, replace, height), to the
+//      chunk's list in device memory (sized at the gather cap: no overflow).  Of the ~750
+//      entries a chunk can see, a few tens survive.
+//   2. features_kernel, one CTA per column, FEATURE_THREADS = 128 threads (each y = t + k * 128):
+//      the chunk's list, NT entries a batch, is tested against the column's window and the
+//      survivors compacted in order into shared memory (warp ballots and a prefix); every
+//      voxel then walks them (walk_candidates) -- one batch and about four barriers a kind
+//      when the list holds at most 128 entries.  The per-block RNG is re-seeded for every
+//      evaluation, so it is computed once per pass and handed to each feature function by value.
+// The culled list is a superset, in the same order, of each column's window survivors, so the
+// result is the per-column walk's.  K7s with CULL = false keeps every visible entry in both
+// launches: the JAX per-chunk program's semantics, which chip_smoke.py holds equal to the
+// culled kernel on every chunk it streams and to the plain version on the first batch.
 //
 // The 64 draws of a placement's stream do not depend on the voxel: the pre-kernel
 // writes them once per list entry ([B, K, 64] f32) and K7 reads them (broadcast loads).
 //
-// K7s is the same block program with another source of lists.  A chunk of the batch
-// reads its 49 sources through a [B, 49] slot table (GATHER_OFFSETS order) from the
-// scheduler's slot table of lists, true counts and streams ([capacity, K(, 64)]).  Its
-// gathered list ranks the valid entries the stored lists hold, min(count, K) per source
-// (valid entries come first), where the area path ranks by the true counts; the two
-// differ only for a list that overflows its K.  The JAX per-chunk program evaluates
-// every gathered entry over the whole chunk; K7s keeps K7's window cull (template CULL),
-// which chip_smoke.py holds equal to the unculled kernel on every chunk it streams and
-// to the plain version on the first batch.
-//
 // Bound on the H100: arithmetic and latency, not bytes (K7 must move 2 bytes per voxel,
 // one read and one write).  The SDFs run for the few voxels inside a placement's window
-// and bounds; the rest of a block's time is the gathered lists' walk and its barriers.
+// and bounds; the rest of a block's time is the list walk and its barriers.
 
 #include "features_sdf.cuh"
 
@@ -58,6 +57,13 @@ struct PlacementLists {
   const int* height;  // cave lists only
   const int* count;   // [B] true (uncapped) counts
   const float* streams;  // [B, K, STREAM_LEN]
+};
+
+// a list entry that the walk reads: its position, stream row (e = source * K + slot),
+// feature, replace flag and (cave) layer height, in two 16-byte words
+struct __align__(16) Candidate {
+  int x, y, z, e;
+  int feat, replace, height, pad;
 };
 
 // thread (e, i) of the pre-kernel: entry e of the surface lists, then of the cave lists
@@ -76,40 +82,6 @@ __global__ void feature_streams_kernel(const int* __restrict__ sx, const int* __
   for (int i = 0; i < STREAM_LEN; ++i) out[i] = lcg_u01(&state);
 }
 
-#define N_WARPS (Y_SIZE / 32)
-// candidate buffer: it is flushed as soon as it holds more than CAND_CAP - Y_SIZE entries,
-// so a batch of up to Y_SIZE survivors always fits
-#define CAND_CAP (2 * Y_SIZE)
-
-struct GatherScratch {
-  int off[NUM_GATHER_OFFSETS + 1];  // gathered index of each spiral rank's first visible entry
-  int src[NUM_GATHER_OFFSETS];      // the rank's source chunk
-  int count[NUM_GATHER_OFFSETS];    // its true placement count (0 beyond the area)
-  int warp_count[N_WARPS];
-  int cand[CAND_CAP];               // list entries (sb * K + k) whose window holds the column
-};
-
-// evaluates the buffered candidates, in order, for one voxel that has no winner yet
-template <bool CAVE>
-MMT_FN bool walk_candidates(const PlacementLists& L, const int* cand, int n_cand, int wx, int wy,
-                            int wz, bool terrain_is_air, uint32_t brng, int& block) {
-  for (int i = 0; i < n_cand; ++i) {
-    int e = cand[i];
-    int feat = L.feature[e];
-    Placement p = {L.x[e], L.y[e], L.z[e]};
-    int h = CAVE ? L.height[e] : 0;
-    const int* bounds = CAVE ? CAVE_FEATURE_HEIGHT_BOUNDS[feat] : FEATURE_HEIGHT_BOUNDS[feat];
-    if (wy < p.y + bounds[0] || wy > p.y + h + bounds[1]) continue;
-    if (!terrain_is_air && L.replace[e] == 0) continue;
-    const float* s = L.streams + (size_t)e * STREAM_LEN;
-    int fx = wx - p.x, fz = wz - p.z;
-    bool hit = CAVE ? cave_feature_hit(feat, s, fx, wy - p.y, fz, wx, wy, wz, brng, p, h, block)
-                    : surface_feature_hit(feat, s, fx, wy - p.y, fz, wx, wy, wz, brng, p, block);
-    if (hit) return true;
-  }
-  return false;
-}
-
 // the sources of a consumer chunk of an area: the chunks at GATHER_OFFSETS inside the
 // area, ranked by their true counts (a source beyond the area has no placements)
 struct AreaSources {
@@ -120,6 +92,11 @@ struct AreaSources {
     src = inside ? sz * ncx + sx : 0;
     cnt = inside ? count[src] : 0;
   }
+};
+
+struct AreaSourcesOf {
+  int ncx, ncz;
+  MMT_FN AreaSources operator()(int b) const { return {b % ncx, b / ncx, ncx, ncz}; }
 };
 
 // the sources of a chunk of the scheduler's batch: its 49 slots, ranked by the valid
@@ -133,110 +110,236 @@ struct SlotSources {
   }
 };
 
-// the first placement of one kind (surface / cave) that claims the voxel, if any; every
-// thread of the block calls it (it holds barriers), `skip` voxels only take part
+struct SlotSourcesOf {
+  const int* nslots;  // [B, 49]
+  MMT_FN SlotSources operator()(int b) const { return {nslots + b * NUM_GATHER_OFFSETS}; }
+};
+
+#define CULL_THREADS 256
+static_assert(NUM_GATHER_OFFSETS <= 64, "the ranks' scans span two warps");
+
+struct CullScratch {
+  int off[NUM_GATHER_OFFSETS + 1];  // list index of each spiral rank's first visible entry
+  int src[NUM_GATHER_OFFSETS];      // the rank's source chunk
+  int part;                         // the first warp's sum, for the scans
+  int warp_count[CULL_THREADS / 32];
+};
+
+// inclusive prefix sum of v over threads 0..63 (each warp's shuffles, then the first warp's
+// sum carried into the second); every thread of the CTA calls it (it holds barriers)
+MMT_FN int scan64(int v, CullScratch& sh) {
+  const int t = threadIdx.x, lane = t & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  if (t == 31) sh.part = v;
+  __syncthreads();
+  if (t >= 32 && t < 64) v += sh.part;
+  __syncthreads();  // sh.part is written again by the next scan
+  return v;
+}
+
+// pre-pass of one consumer chunk and kind: every visible gathered entry, in order, whose
+// window meets the chunk's columns (every visible entry without CULL) to out; its length to
+// *count
 template <bool CAVE, bool CULL, class Sources>
-MMT_FN bool first_hit(const PlacementLists& L, int K, GatherScratch& sh, const Sources& S, int wx,
-                      int wy, int wz, bool terrain_is_air, bool skip, int& block) {
+MMT_FN void cull_chunk(const PlacementLists& L, int K, const Sources& S, int x0, int z0, CullScratch& sh,
+                       Candidate* __restrict__ out, int* count) {
   const int cap = CAVE ? MAX_GATHERED_CAVE_FEATURES : MAX_GATHERED_FEATURES;
   const int n_types = CAVE ? NUM_CAVE_FEATURES : NUM_FEATURES;
-  int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();  // the scratch may still be read by the previous pass
-  if (tid < NUM_GATHER_OFFSETS) S.get(tid, L.count, K, sh.src[tid], sh.count[tid]);
-  __syncthreads();
-  if (tid == 0) {
-    int gathered = 0, total = 0;  // index in the gathered list; visible entries so far
-    for (int r = 0; r < NUM_GATHER_OFFSETS; ++r) {
-      int cnt = sh.count[r];
-      int n = cnt < K ? cnt : K;
-      if (n > cap - gathered) n = cap - gathered;  // the gather cuts its list at the cap
-      sh.off[r] = total;
-      total += n > 0 ? n : 0;
-      gathered += cnt;
-    }
-    sh.off[NUM_GATHER_OFFSETS] = total;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int src = 0, cnt = 0;
+  if (t < NUM_GATHER_OFFSETS) S.get(t, L.count, K, src, cnt);
+  // the gathered index of the rank's first entry, then its visible entries: at most K, and
+  // none past the gather cap
+  const int gathered = scan64(cnt, sh) - cnt;
+  int n = cnt < K ? cnt : K;
+  if (n > cap - gathered) n = cap - gathered;
+  n = n > 0 ? n : 0;
+  const int off = scan64(n, sh);
+  if (t < NUM_GATHER_OFFSETS) {
+    sh.off[t] = off - n;
+    sh.src[t] = src;
   }
+  if (t == NUM_GATHER_OFFSETS - 1) sh.off[NUM_GATHER_OFFSETS] = off;
   __syncthreads();
-  int total = sh.off[NUM_GATHER_OFFSETS];
-  uint32_t brng = seed_4(wx, wy, wz, CAVE ? SEED_CAVE_BLOCK_RNG : SEED_SURFACE_BLOCK_RNG);
-  bool found = false;
-  int n_cand = 0;
-  for (int base = 0; base < total; base += Y_SIZE) {
-    // this thread's gathered entry: does its window hold the column?
-    int g = base + tid, e = 0;
+  const int total = sh.off[NUM_GATHER_OFFSETS];
+  int n_out = 0;
+  for (int base = 0; base < total; base += CULL_THREADS) {
+    const int g = base + t;
     bool keep = false;
+    Candidate c;
     if (g < total) {
-      int r = 0;
-      while (sh.off[r + 1] <= g) ++r;
-      e = sh.src[r] * K + (g - sh.off[r]);
-      int feat = L.feature[e];
+      int r = 0, hi = NUM_GATHER_OFFSETS - 1;  // the last rank whose first entry is <= g
+      while (r < hi) {
+        int mid = (r + hi + 1) >> 1;
+        if (sh.off[mid] <= g) r = mid;
+        else hi = mid - 1;
+      }
+      const int e = sh.src[r] * K + (g - sh.off[r]);
+      const int feat = L.feature[e];
       if (feat > 0 && feat < n_types) {
-        int fx = wx - L.x[e], fz = wz - L.z[e];
+        const int x = L.x[e], z = L.z[e];
         const int* win = CAVE ? CAVE_WINDOW[feat] : SURFACE_WINDOW[feat];
-        keep = !CULL || (fx >= -win[0] && fx <= win[1] && fz >= -win[0] && fz <= win[1]);
+        // the window [x - win[0], x + win[1]] x [z - win[0], z + win[1]] meets the columns
+        keep = !CULL || (x0 - x <= win[1] && x0 + 15 - x >= -win[0] && z0 - z <= win[1] &&
+                         z0 + 15 - z >= -win[0]);
+        if (keep) c = {x, L.y[e], z, e, feat, L.replace[e], CAVE ? L.height[e] : 0, 0};
       }
     }
-    // append the kept entries to the buffer in gathered order
-    unsigned mask = __ballot_sync(0xffffffffu, keep);
+    const unsigned mask = __ballot_sync(0xffffffffu, keep);
     if (lane == 0) sh.warp_count[warp] = __popc(mask);
     __syncthreads();
     int before = 0, batch = 0;
-    for (int k = 0; k < N_WARPS; ++k) {
+    for (int k = 0; k < CULL_THREADS / 32; ++k) {
       if (k < warp) before += sh.warp_count[k];
       batch += sh.warp_count[k];
     }
-    if (keep) sh.cand[n_cand + before + __popc(mask & ((1u << lane) - 1u))] = e;
+    if (keep) out[n_out + before + __popc(mask & ((1u << lane) - 1u))] = c;
+    n_out += batch;
+    __syncthreads();
+  }
+  if (t == 0) *count = n_out;
+}
+
+// blockIdx.x: the consumer chunk b; blockIdx.y: 0 surface, 1 cave.  out_s / out_c [B, cap],
+// counts [B, 2]
+template <bool CULL, class SourcesOf>
+__global__ void __launch_bounds__(CULL_THREADS)
+cull_kernel(PlacementLists surf, PlacementLists cave, SourcesOf sources, const int* __restrict__ pos,
+            Candidate* __restrict__ out_s, Candidate* __restrict__ out_c, int* __restrict__ counts) {
+  __shared__ CullScratch sh;
+  const int b = blockIdx.x, x0 = pos[2 * b], z0 = pos[2 * b + 1];
+  if (blockIdx.y == 0)
+    cull_chunk<false, CULL>(surf, CHUNK_FEATURE_CAP, sources(b), x0, z0, sh,
+                            out_s + (size_t)b * MAX_GATHERED_FEATURES, counts + 2 * b);
+  else
+    cull_chunk<true, CULL>(cave, CHUNK_CAVE_FEATURE_CAP, sources(b), x0, z0, sh,
+                           out_c + (size_t)b * MAX_GATHERED_CAVE_FEATURES, counts + 2 * b + 1);
+}
+
+// evaluates the buffered candidates, in order, for one voxel that has no winner yet
+template <bool CAVE>
+MMT_FN bool walk_candidates(const Candidate* cand, int n_cand, const float* streams, int wx, int wy,
+                            int wz, bool terrain_is_air, uint32_t brng, int& block) {
+  for (int i = 0; i < n_cand; ++i) {
+    const Candidate c = cand[i];
+    int feat = c.feat;
+    Placement p = {c.x, c.y, c.z};
+    int h = CAVE ? c.height : 0;
+    const int* bounds = CAVE ? CAVE_FEATURE_HEIGHT_BOUNDS[feat] : FEATURE_HEIGHT_BOUNDS[feat];
+    if (wy < p.y + bounds[0] || wy > p.y + h + bounds[1]) continue;
+    if (!terrain_is_air && c.replace == 0) continue;
+    const float* s = streams + (size_t)c.e * STREAM_LEN;
+    int fx = wx - p.x, fz = wz - p.z;
+    bool hit = CAVE ? cave_feature_hit(feat, s, fx, wy - p.y, fz, wx, wy, wz, brng, p, h, block)
+                    : surface_feature_hit(feat, s, fx, wy - p.y, fz, wx, wy, wz, brng, p, block);
+    if (hit) return true;
+  }
+  return false;
+}
+
+// the first placement of one kind (surface / cave) that claims each of the thread's VPT voxels
+// (y = t + k * NT), from the chunk's culled list of n entries; every thread of the CTA calls it
+// (it holds barriers), `skip` voxels only take part
+template <bool CAVE, bool CULL, int NT, int VPT>
+MMT_FN void first_hits(const Candidate* __restrict__ list, int n, const float* streams, int wx, int wz,
+                       const bool* is_air, const bool* skip, bool* found, int* block, Candidate* cand,
+                       int* warp_count) {
+  constexpr int CAND_CAP = 2 * NT;  // flushed once it holds more than CAND_CAP - NT entries
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint32_t brng[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    brng[k] = seed_4(wx, t + k * NT, wz, CAVE ? SEED_CAVE_BLOCK_RNG : SEED_SURFACE_BLOCK_RNG);
+    found[k] = false;
+  }
+  __syncthreads();  // the buffer may still be read by the previous pass
+  int n_cand = 0;
+  for (int base = 0; base < n; base += NT) {
+    // this thread's list entry: does its window hold the column?
+    const int j = base + t;
+    bool keep = false;
+    Candidate c;
+    if (j < n) {
+      c = list[j];
+      const int* win = CAVE ? CAVE_WINDOW[c.feat] : SURFACE_WINDOW[c.feat];
+      const int fx = wx - c.x, fz = wz - c.z;
+      keep = !CULL || (fx >= -win[0] && fx <= win[1] && fz >= -win[0] && fz <= win[1]);
+    }
+    // append the kept entries to the buffer in list order
+    const unsigned mask = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_count[warp] = __popc(mask);
+    __syncthreads();
+    int before = 0, batch = 0;
+#pragma unroll
+    for (int k = 0; k < NT / 32; ++k) {
+      if (k < warp) before += warp_count[k];
+      batch += warp_count[k];
+    }
+    if (keep) cand[n_cand + before + __popc(mask & ((1u << lane) - 1u))] = c;
     n_cand += batch;
     __syncthreads();
-    // flush when another batch might not fit, and after the last batch
-    if (n_cand > CAND_CAP - Y_SIZE || base + Y_SIZE >= total) {
-      if (!skip && !found)
-        found = walk_candidates<CAVE>(L, sh.cand, n_cand, wx, wy, wz, terrain_is_air, brng, block);
+    // walk when another batch might not fit, and after the last batch
+    if (n_cand > CAND_CAP - NT || base + NT >= n) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k)
+        if (!skip[k] && !found[k])
+          found[k] = walk_candidates<CAVE>(cand, n_cand, streams, wx, t + k * NT, wz, is_air[k], brng[k],
+                                           block[k]);
       n_cand = 0;
       __syncthreads();
     }
   }
-  return found;
 }
 
-// one voxel (block (b, col), thread y): surface placements first, then cave placements
-// for the voxels no surface placement took; both test the terrain block
-template <bool CULL, class Sources>
-MMT_FN void feature_voxel(const unsigned char* blocks, const PlacementLists& surf,
-                          const PlacementLists& cave, const Sources& S, GatherScratch& sh,
-                          const int* pos, unsigned char* out) {
-  int bc = blockIdx.x;  // b * 256 + col
-  int b = bc >> 8, col = bc & 255;
-  int y = threadIdx.x;
-  int wx = pos[2 * b] + (col & 15), wz = pos[2 * b + 1] + (col >> 4);
-  size_t o = (size_t)bc * Y_SIZE + y;
-  int terrain = blocks[o];
-  bool is_air = terrain == BLOCK_AIR;
-  int s_block = 0, c_block = 0;
-  bool s_hit = first_hit<false, CULL>(surf, CHUNK_FEATURE_CAP, sh, S, wx, y, wz, is_air, false,
-                                      s_block);
-  bool c_hit = first_hit<true, CULL>(cave, CHUNK_CAVE_FEATURE_CAP, sh, S, wx, y, wz, is_air, s_hit,
-                                     c_block);
-  out[o] = (unsigned char)(s_hit ? s_block : (c_hit ? c_block : terrain));
+// one column (blockIdx.x = b * 256 + col) of the chunks' blocks: surface placements first,
+// then cave placements for the voxels no surface placement took; both test the terrain block
+template <int NT, bool CULL>
+__global__ void __launch_bounds__(NT) features_kernel(
+    const unsigned char* __restrict__ blocks, const float* __restrict__ s_streams,
+    const float* __restrict__ c_streams, const Candidate* __restrict__ list_s,
+    const Candidate* __restrict__ list_c, const int* __restrict__ counts, const int* __restrict__ pos,
+    unsigned char* __restrict__ out) {
+  static_assert(Y_SIZE % NT == 0 && NT % 32 == 0, "a thread takes Y_SIZE / NT voxels");
+  constexpr int VPT = Y_SIZE / NT;
+  __shared__ Candidate cand[2 * NT];
+  __shared__ int warp_count[NT / 32];
+  const int bc = blockIdx.x, b = bc >> 8, col = bc & 255, t = threadIdx.x;
+  const int wx = pos[2 * b] + (col & 15), wz = pos[2 * b + 1] + (col >> 4);
+  int terrain[VPT], s_block[VPT], c_block[VPT];
+  bool is_air[VPT], none[VPT], s_hit[VPT], c_hit[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    terrain[k] = blocks[(size_t)bc * Y_SIZE + t + k * NT];
+    is_air[k] = terrain[k] == BLOCK_AIR;
+    none[k] = false;
+    s_block[k] = c_block[k] = 0;
+  }
+  first_hits<false, CULL, NT, VPT>(list_s + (size_t)b * MAX_GATHERED_FEATURES, counts[2 * b], s_streams, wx,
+                                   wz, is_air, none, s_hit, s_block, cand, warp_count);
+  first_hits<true, CULL, NT, VPT>(list_c + (size_t)b * MAX_GATHERED_CAVE_FEATURES, counts[2 * b + 1],
+                                  c_streams, wx, wz, is_air, s_hit, c_hit, c_block, cand, warp_count);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k)
+    out[(size_t)bc * Y_SIZE + t + k * NT] = (unsigned char)(s_hit[k] ? s_block[k] : (c_hit[k] ? c_block[k] : terrain[k]));
 }
 
-__global__ void __launch_bounds__(Y_SIZE) features_kernel(
-    const unsigned char* __restrict__ blocks, PlacementLists surf, PlacementLists cave,
-    const int* __restrict__ pos, int ncx, int ncz, unsigned char* __restrict__ out) {
-  __shared__ GatherScratch sh;
-  int b = blockIdx.x >> 8;
-  AreaSources S = {b % ncx, b / ncx, ncx, ncz};
-  feature_voxel<true>(blocks, surf, cave, S, sh, pos, out);
-}
+// threads of the column pass, a column a CTA: three voxels a thread.  On the H100 (ptxas: 72
+// registers, 32 bytes spilled) it beat 384 (a thread a voxel, 75 registers), 192 and 64 (80
+// registers, 148 bytes of spill loads) at the 5x5 and 33x33 areas and the drain's batches:
+// fewer threads a column share one list batch and its barriers, and more columns fit an SM
+#define FEATURE_THREADS 128
 
-// K7s: lists, counts and streams are the slot table's; nslots [B, 49]
 template <bool CULL>
-__global__ void __launch_bounds__(Y_SIZE) features_slots_kernel(
-    const unsigned char* __restrict__ blocks, PlacementLists surf, PlacementLists cave,
-    const int* __restrict__ nslots, const int* __restrict__ pos, unsigned char* __restrict__ out) {
-  __shared__ GatherScratch sh;
-  SlotSources S = {nslots + (blockIdx.x >> 8) * NUM_GATHER_OFFSETS};
-  feature_voxel<CULL>(blocks, surf, cave, S, sh, pos, out);
+static int launch_columns(int B, const unsigned char* blocks, const float* s_streams, const float* c_streams,
+                          const Candidate* list_s, const Candidate* list_c, const int* counts, const int* pos,
+                          unsigned char* out, cudaStream_t st) {
+  features_kernel<FEATURE_THREADS, CULL><<<B * 256, FEATURE_THREADS, 0, st>>>(
+      blocks, s_streams, c_streams, list_s, list_c, counts, pos, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int mmt_feature_streams(const int* sx, const int* sy, const int* sz, const int* cx,
@@ -249,33 +352,50 @@ extern "C" int mmt_feature_streams(const int* sx, const int* sy, const int* sz, 
   return (int)cudaGetLastError();
 }
 
+// K7: cand_s [B, MAX_GATHERED_FEATURES] and cand_c [B, MAX_GATHERED_CAVE_FEATURES] Candidates
+// and counts [B, 2] are the pre-pass's lists (scratch the caller allocates)
 extern "C" int mmt_features(const unsigned char* blocks, const int* s_feature, const int* s_x,
                             const int* s_y, const int* s_z, const int* s_replace,
                             const int* s_count, const float* s_streams, const int* c_feature,
                             const int* c_x, const int* c_y, const int* c_z, const int* c_replace,
                             const int* c_height, const int* c_count, const float* c_streams,
-                            const int* pos, int ncx, int ncz, unsigned char* out, void* stream) {
+                            const int* pos, int ncx, int ncz, void* cand_s, void* cand_c, int* counts,
+                            unsigned char* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   PlacementLists surf = {s_feature, s_x, s_y, s_z, s_replace, nullptr, s_count, s_streams};
   PlacementLists cave = {c_feature, c_x, c_y, c_z, c_replace, c_height, c_count, c_streams};
-  features_kernel<<<ncx * ncz * 256, Y_SIZE, 0, (cudaStream_t)stream>>>(blocks, surf, cave, pos,
-                                                                        ncx, ncz, out);
-  return (int)cudaGetLastError();
+  const int B = ncx * ncz;
+  Candidate* ls = (Candidate*)cand_s;
+  Candidate* lc = (Candidate*)cand_c;
+  cull_kernel<true><<<dim3(B, 2), CULL_THREADS, 0, st>>>(surf, cave, AreaSourcesOf{ncx, ncz}, pos, ls, lc,
+                                                         counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_columns<true>(B, blocks, s_streams, c_streams, ls, lc, counts, pos, out, st);
 }
 
+// K7s: lists, counts and streams are the slot table's; nslots [B, 49]
 extern "C" int mmt_features_slots(const unsigned char* blocks, const int* s_feature, const int* s_x,
                                   const int* s_y, const int* s_z, const int* s_replace,
                                   const int* s_count, const float* s_streams, const int* c_feature,
                                   const int* c_x, const int* c_y, const int* c_z,
                                   const int* c_replace, const int* c_height, const int* c_count,
                                   const float* c_streams, const int* nslots, const int* pos, int B,
-                                  int cull, unsigned char* out, void* stream) {
+                                  int cull, void* cand_s, void* cand_c, int* counts, unsigned char* out,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   PlacementLists surf = {s_feature, s_x, s_y, s_z, s_replace, nullptr, s_count, s_streams};
   PlacementLists cave = {c_feature, c_x, c_y, c_z, c_replace, c_height, c_count, c_streams};
+  Candidate* ls = (Candidate*)cand_s;
+  Candidate* lc = (Candidate*)cand_c;
   if (cull)
-    features_slots_kernel<true><<<B * 256, Y_SIZE, 0, (cudaStream_t)stream>>>(blocks, surf, cave,
-                                                                            nslots, pos, out);
+    cull_kernel<true><<<dim3(B, 2), CULL_THREADS, 0, st>>>(surf, cave, SlotSourcesOf{nslots}, pos, ls, lc,
+                                                           counts);
   else
-    features_slots_kernel<false><<<B * 256, Y_SIZE, 0, (cudaStream_t)stream>>>(blocks, surf, cave,
-                                                                             nslots, pos, out);
-  return (int)cudaGetLastError();
+    cull_kernel<false><<<dim3(B, 2), CULL_THREADS, 0, st>>>(surf, cave, SlotSourcesOf{nslots}, pos, ls, lc,
+                                                            counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return cull ? launch_columns<true>(B, blocks, s_streams, c_streams, ls, lc, counts, pos, out, st)
+              : launch_columns<false>(B, blocks, s_streams, c_streams, ls, lc, counts, pos, out, st);
 }

@@ -433,7 +433,47 @@ MMT_FN void worley2(float px, float py, float& f1, float& edge, float& cpx, floa
   edge = (min2 - min1) * 0.5f;
 }
 
-MMT_FN float worley3_f1(float px, float py, float pz) {
+// The jitter of a 3-D Worley search's cell: rand3_from3 at the cell (ix + ox, iy + oy, iz + oz),
+// (ix, iy, iz) being the floor of the point.  HashJitter hashes it; TableJitter reads it from a
+// table of a cell box that fill_jitter_table filled: component k of the integer cell
+// (x0 + a, y0 + b, z0 + c) at table[k * stride + (a * ny + b) * nz + c].  The table hashes the
+// float of the integer cell, (float)(x0 + a); the hash reads ix + (float)ox.  Both are the
+// integer ix + ox rounded to nearest even (ix, a float holding an integer, and ox are exact), so
+// the two agree at every coordinate, past 2^24 too, where that float is no longer the integer.
+struct HashJitter {
+  MMT_FN void operator()(float ix, float iy, float iz, int ox, int oy, int oz, float& rx, float& ry,
+                         float& rz) const {
+    rand3_from3(ix + (float)ox, iy + (float)oy, iz + (float)oz, rx, ry, rz);
+  }
+};
+
+struct TableJitter {
+  const float* table;
+  int stride, x0, y0, z0, ny, nz;
+  MMT_FN void operator()(float ix, float iy, float iz, int ox, int oy, int oz, float& rx, float& ry,
+                         float& rz) const {
+    int cell = (((int)ix + ox - x0) * ny + ((int)iy + oy - y0)) * nz + ((int)iz + oz - z0);
+    rx = table[cell];
+    ry = table[stride + cell];
+    rz = table[2 * stride + cell];
+  }
+};
+
+// the jitters of the nx x ny x nz cells from (x0, y0, z0), one hash (one component of one cell)
+// per step of a loop that threads t = 0 .. nt - 1 share; table holds 3 * n floats (stride n)
+MMT_FN void fill_jitter_table(float* table, int n, int x0, int y0, int z0, int ny, int nz, int t,
+                              int nt) {
+  for (int i = t; i < 3 * n; i += nt) {
+    int k = i / n, cell = i - k * n;
+    int a = cell / (ny * nz), rem = cell - a * (ny * nz);
+    int b = rem / nz, c = rem - b * nz;
+    table[i] = rand3_from3_k((float)(x0 + a), (float)(y0 + b), (float)(z0 + c), k);
+  }
+}
+
+// Worley F1 over the 27 cells around (px, py, pz), the jitters from `jitter`
+template <class Jitter>
+MMT_FN float worley3_f1_search(float px, float py, float pz, Jitter jitter) {
   float ix = floorf(px), iy = floorf(py), iz = floorf(pz);
   float fx = px - ix, fy = py - iy, fz = pz - iz;
   float min1 = MMT_FLT_MAX;
@@ -441,7 +481,7 @@ MMT_FN float worley3_f1(float px, float py, float pz) {
     for (int oy = -1; oy <= 1; ++oy)
       for (int oz = -1; oz <= 1; ++oz) {
         float rx, ry, rz;
-        rand3_from3(ix + (float)ox, iy + (float)oy, iz + (float)oz, rx, ry, rz);
+        jitter(ix, iy, iz, ox, oy, oz, rx, ry, rz);
         float dx = (float)ox + rx - fx;
         float dy = (float)oy + ry - fy;
         float dz = (float)oz + rz - fz;
@@ -451,9 +491,11 @@ MMT_FN float worley3_f1(float px, float py, float pz) {
   return min1;
 }
 
-// the 3-min-distance Worley ratio min3 / min1 - 1 over the 27 cells around (px, py, pz);
-// jitter(cx, cy, cz, ox, oy, oz, rx, ry, rz) gives the cell's rand3_from3, the cell being
-// (cx + ox, cy + oy, cz + oz) with (cx, cy, cz) the floor of the point
+// worley3's F1 hashing each of its 27 cells (27 rand3_from3, 81 sin_cr)
+MMT_FN float worley3_f1(float px, float py, float pz) { return worley3_f1_search(px, py, pz, HashJitter()); }
+
+// the 3-min-distance Worley ratio min3 / min1 - 1 over the 27 cells around (px, py, pz), the
+// jitters from `jitter`
 template <class Jitter>
 MMT_FN float special_cave_search(float px, float py, float pz, Jitter jitter) {
   float ix = floorf(px), iy = floorf(py), iz = floorf(pz);
@@ -480,26 +522,14 @@ MMT_FN float special_cave_search(float px, float py, float pz, Jitter jitter) {
 
 // special_cave_noise hashing each of its 27 cells (27 rand3_from3, 81 sin_cr)
 MMT_FN float special_cave_noise(float px, float py, float pz) {
-  return special_cave_search(px, py, pz, [](float ix, float iy, float iz, int ox, int oy, int oz,
-                                            float& rx, float& ry, float& rz) {
-    rand3_from3(ix + (float)ox, iy + (float)oy, iz + (float)oz, rx, ry, rz);
-  });
+  return special_cave_search(px, py, pz, HashJitter());
 }
 
-// special_cave_noise with the jitters read from a table of a cell box: component k of
-// rand3_from3 at the integer cell (x0 + a, y0 + b, z0 + c) at table[k * stride + (a * ny + b)
-// * nz + c].  The box must hold the 27 cells around the point, whose coordinates must be
-// exact in f32 (|floor| < 2^24): then each cell's float is the direct path's ix + ox, and
-// the result is special_cave_noise's bit for bit.
+// special_cave_noise with the jitters read from a table of a cell box (TableJitter): the box must
+// hold the 27 cells around the point; the result is special_cave_noise's bit for bit
 MMT_FN float special_cave_noise_table(float px, float py, float pz, const float* table, int stride,
                                       int x0, int y0, int z0, int ny, int nz) {
-  return special_cave_search(px, py, pz, [=](float ix, float iy, float iz, int ox, int oy, int oz,
-                                             float& rx, float& ry, float& rz) {
-    int cell = (((int)ix + ox - x0) * ny + ((int)iy + oy - y0)) * nz + ((int)iz + oz - z0);
-    rx = table[cell];
-    ry = table[stride + cell];
-    rz = table[2 * stride + cell];
-  });
+  return special_cave_search(px, py, pz, TableJitter{table, stride, x0, y0, z0, ny, nz});
 }
 
 // ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 
 from ..world import biomes as bio
 
-from ..tables import CARVE_Y_MAX, Y_SIZE, load_tables
+from ..tables import CARVE_Y_MAX, LUSH_TABLE_CELLS, Y_SIZE, load_tables
 from . import _build
 
 #: launches per kernel since the last reset (plain integers, read by chip_smoke.py)
@@ -293,8 +293,13 @@ def caves(heightfield, biome_weights, chunk_pos, table_cells: int, stats=None, w
     return out
 
 
-def fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos):
-    """K4: -> blocks [B, 16, 16, 384] u8 ([z, x, y])."""
+def fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos, table_cells: int,
+         stats=None):
+    """K4: -> blocks [B, 16, 16, 384] u8 ([z, x, y]).  ``table_cells``: the capacity of the lush
+    caves' cell table (tables.LUSH_TABLE_CELLS at most; 0 takes every tile with lush work to the
+    direct path).  ``stats``: None, or a [4] i32 tensor on the device that the launch adds to:
+    [blocks queued for the cave biome, lush blocks, the largest cell box (cells) a tile saw,
+    tiles that took the direct path]."""
     dev = heightfield.device
     B = heightfield.shape[0]
     _check(heightfield, "heightfield", torch.float32, (B, 16, 16), dev)
@@ -303,6 +308,10 @@ def fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos):
     _check(cave_starts, "cave_starts", torch.int32, (B, 16, 16, N_LAYERS), dev)
     _check(cave_ends, "cave_ends", torch.int32, (B, 16, 16, N_LAYERS), dev)
     _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
+    if not 0 <= table_cells <= LUSH_TABLE_CELLS:
+        raise ValueError(f"table_cells {table_cells} outside [0, {LUSH_TABLE_CELLS}]")
+    if stats is not None:
+        _check(stats, "stats", torch.int32, (4,), dev)
     tb = load_tables(dev)
     blocks = torch.empty((B, 16, 16, Y_SIZE), dtype=torch.uint8, device=dev)
     if B:
@@ -310,7 +319,8 @@ def fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos):
             _launch("fill", _build.load().mmt_fill,
                     _p(heightfield), _p(biome_weights), _p(layers), _p(cave_starts),
                     _p(cave_ends), _p(chunk_pos), B, _p(tb.grass_blocks),
-                    _p(tb.material_block), _p(tb.cave_biome_noise_weights), _p(blocks))
+                    _p(tb.material_block), _p(tb.cave_biome_noise_weights), int(table_cells),
+                    None if stats is None else _p(stats), _p(blocks))
     return blocks
 
 
@@ -401,10 +411,33 @@ def feature_streams(surface_lists, cave_lists):
     return s_out, c_out
 
 
+#: the gather caps (feature_placement.MAX_GATHERED_*): the length of a chunk's culled list
+SURFACE_GATHER_CAP = bio.MAX_GATHERED_FEATURES_PER_CHUNK
+CAVE_GATHER_CAP = bio.MAX_GATHERED_CAVE_FEATURES_PER_CHUNK
+#: int32 words of a culled list entry (csrc/features.cu Candidate: x, y, z, the entry's row in
+#: the streams, feature, replace, height, pad)
+CANDIDATE_WORDS = 8
+
+
+def _culled_scratch(B, dev):
+    """The pre-pass's per-chunk lists ([B, cap, 8] i32 for each kind) and counts ([B, 2] i32)."""
+    return (torch.empty((B, SURFACE_GATHER_CAP, CANDIDATE_WORDS), dtype=torch.int32, device=dev),
+            torch.empty((B, CAVE_GATHER_CAP, CANDIDATE_WORDS), dtype=torch.int32, device=dev),
+            torch.empty((B, 2), dtype=torch.int32, device=dev))
+
+
+def _culled_lists(cand_s, cand_c, counts):
+    """{"surface", "cave"}: (lists [B, cap, 8] i32, the first counts[b] of chunk b's entries
+    valid; counts [B] i32)."""
+    return {"surface": (cand_s, counts[:, 0]), "cave": (cand_c, counts[:, 1])}
+
+
 def features(blocks, surface_lists, cave_lists, surface_streams, cave_streams, chunk_pos,
-             ncx: int, ncz: int):
+             ncx: int, ncz: int, want_lists: bool = False):
     """K7: blocks [B,16,16,384] u8 of an ncx x ncz area (B = ncz*ncx row-major) with the
-    placement lists applied -> new blocks tensor.
+    placement lists applied -> new blocks tensor (and with ``want_lists`` the pre-pass's
+    culled lists, ``_culled_lists``).  Two launches, one count: the per-chunk cull, then the
+    column pass.
 
     The lists are K6's: [B, 256] / [B, 1024] i32 with the valid entries first and a true
     [B] ``count``; the kernel reads the first min(count, width) entries of a list."""
@@ -417,22 +450,25 @@ def features(blocks, surface_lists, cave_lists, surface_streams, cave_streams, c
     _check(cave_streams, "cave_streams", torch.float32, (B, CAVE_CAP, STREAM_LEN), dev)
     _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
     out = torch.empty_like(blocks)
+    scratch = _culled_scratch(B, dev)
     if B:
         with torch.cuda.device(dev):
             _launch("features", _build.load().mmt_features, _p(blocks),
                     *(_p(surface_lists[k]) for k in (*SURFACE_FIELDS, "count")), _p(surface_streams),
                     *(_p(cave_lists[k]) for k in (*CAVE_FIELDS, "count")), _p(cave_streams),
-                    _p(chunk_pos), ncx, ncz, _p(out))
-    return out
+                    _p(chunk_pos), ncx, ncz, *(_p(t) for t in scratch), _p(out))
+    return (out, _culled_lists(*scratch)) if want_lists else out
 
 
-def features_slots(blocks, d_sf, d_cf, d_sstream, d_cstream, nslots, chunk_pos, cull: bool = True):
+def features_slots(blocks, d_sf, d_cf, d_sstream, d_cstream, nslots, chunk_pos, cull: bool = True,
+                   want_lists: bool = False):
     """K7s: blocks [B,16,16,384] u8 of the batch's chunks with their gathered placement
-    lists applied -> new blocks tensor.  Chunk b gathers the lists of the slots
-    ``nslots[b]`` ([B, 49] i32, GATHER_OFFSETS order) from the slot table: ``d_sf`` /
-    ``d_cf`` dicts of [C, 256] / [C, 1024] i32 fields and [C] true ``count``,
-    ``d_sstream`` / ``d_cstream`` [C, K, 64] f32.  ``cull=False`` evaluates every gathered
-    entry for every voxel (no window test): the JAX program's semantics, for checking."""
+    lists applied -> new blocks tensor (and with ``want_lists`` the pre-pass's culled lists).
+    Chunk b gathers the lists of the slots ``nslots[b]`` ([B, 49] i32, GATHER_OFFSETS order)
+    from the slot table: ``d_sf`` / ``d_cf`` dicts of [C, 256] / [C, 1024] i32 fields and [C]
+    true ``count``, ``d_sstream`` / ``d_cstream`` [C, K, 64] f32.  ``cull=False`` keeps and
+    evaluates every visible gathered entry for every voxel (no window test): the JAX
+    program's semantics, for checking."""
     dev = blocks.device
     B, C = blocks.shape[0], d_sf["feature"].shape[0]
     _check(blocks, "blocks", torch.uint8, (B, 16, 16, Y_SIZE), dev)
@@ -443,13 +479,14 @@ def features_slots(blocks, d_sf, d_cf, d_sstream, d_cstream, nslots, chunk_pos, 
     _check(nslots, "nslots", torch.int32, (B, 49), dev)
     _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
     out = torch.empty_like(blocks)
+    scratch = _culled_scratch(B, dev)
     if B:
         with torch.cuda.device(dev):
             _launch("features_slots", _build.load().mmt_features_slots, _p(blocks),
                     *(_p(d_sf[k]) for k in (*SURFACE_FIELDS, "count")), _p(d_sstream),
                     *(_p(d_cf[k]) for k in (*CAVE_FIELDS, "count")), _p(d_cstream),
-                    _p(nslots), _p(chunk_pos), B, int(cull), _p(out))
-    return out
+                    _p(nslots), _p(chunk_pos), B, int(cull), *(_p(t) for t in scratch), _p(out))
+    return (out, _culled_lists(*scratch)) if want_lists else out
 
 
 def decorators(blocks, heightfield, biome_weights, cave_starts, cave_ends, cave_bottom_biome,

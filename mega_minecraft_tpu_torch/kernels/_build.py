@@ -63,8 +63,9 @@ SIGNATURES = {
     # hf, w, pos, B, cave_noise_w, table cells, stats, scratch carved, out starts, ends,
     # bottom, top, stream
     "mmt_caves": [_P, _P, _P, _I, _P, _I] + [_P] * 7,
-    # hf, w, layers, starts, ends, pos, B, grass, mat_block, cave_noise_w, out blocks, stream
-    "mmt_fill": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    # hf, w, layers, starts, ends, pos, B, grass, mat_block, cave_noise_w, table cells, stats,
+    # out blocks, stream
+    "mmt_fill": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     # hf, w, layers, starts, ends, bottom_biome, top_biome, pos, B, out surface_feature,
     # surface_y, surface_replace, cave_feature, cave_y, cave_height, cave_replace, stream
     "mmt_placements": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -74,10 +75,12 @@ SIGNATURES = {
     # surface x, y, z, cave x, y, z, B, out surface streams, out cave streams, stream
     "mmt_feature_streams": [_P] * 6 + [_I, _P, _P, _P],
     # blocks, surface feature, x, y, z, replace, count, streams, cave feature, x, y, z,
-    # replace, height, count, streams, pos, ncx, ncz, out blocks, stream
-    "mmt_features": [_P] * 17 + [_I, _I, _P, _P],
-    # the 16 list arguments of mmt_features, nslots, pos, B, cull, out blocks, stream
-    "mmt_features_slots": [_P] * 18 + [_I, _I, _P, _P],
+    # replace, height, count, streams, pos, ncx, ncz, scratch surface list, cave list, counts,
+    # out blocks, stream
+    "mmt_features": [_P] * 17 + [_I, _I] + [_P] * 5,
+    # the 16 list arguments of mmt_features, nslots, pos, B, cull, scratch surface list, cave
+    # list, counts, out blocks, stream
+    "mmt_features_slots": [_P] * 18 + [_I, _I] + [_P] * 5,
     # blocks, hf, w, starts, ends, bottom_biome, pos, B, out blocks, stream
     "mmt_decorators": [_P] * 7 + [_I, _P, _P],
     # vol, alpha tables, Z, X, Y, out flat, scratch a, b, mask, top, sky, stream
@@ -124,6 +127,7 @@ def ids_header() -> str:
     for name in (
         "Y_SIZE", "CARVE_Y_MAX", "CAVE_BIOME_Y_MAX",
         "SEED_BOTTOM_BIOME", "SEED_TOP_BIOME", "SEED_FILL_CAVE_BIOME",
+        "FILL_TILE_COLS", "LUSH_TABLE_CELLS",
     ):
         lines.append(f"#define {name} {int(getattr(tables, name))}")
     lines.append(f"#define OVERALL_BIOME_SCALE {float(bio.OVERALL_BIOME_SCALE)!r}")

@@ -28,6 +28,14 @@ CAVE_BIOME_Y_MAX = 192
 SEED_BOTTOM_BIOME = 329271348
 SEED_TOP_BIOME = 4982921
 SEED_FILL_CAVE_BIOME = 190249401
+#: columns of a tile of K4 (csrc/fill.cu): consecutive x of one z row of a chunk
+FILL_TILE_COLS = 8
+#: cells of K4's shared-memory table of Worley jitters for the lush caves' clay test: the cell
+#: box of a tile's clay points (terrain/fill.py lush_clay_point) with the +-1 ring.  Over every
+#: block below CAVE_BIOME_Y_MAX of a tile, a superset of its lush blocks, the box measures at
+#: most 225 cells at the chunks tests/test_torch_fill_table.py measures, out to the int32 edge;
+#: a tile whose box is larger takes the kernel's direct path, which hashes every cell it reads.
+LUSH_TABLE_CELLS = 512
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,9 +9,11 @@ consumer's gathered list (true counts of the earlier spiral sources + slot) is b
 the reference's gather cap (2,048 surface / 4,096 cave).
 
 ``apply_features_area`` dispatches on the device: CUDA tensors go to K7 in
-``csrc/features.cu`` (after its pre-kernel there made each placement's 64-draw stream),
-CPU tensors to the plain version, a Python loop over placements that evaluates each over
-its window and keeps the minimum (spiral rank, slot) key per voxel.
+``csrc/features.cu`` (after its pre-kernel there made each placement's 64-draw stream; a
+per-chunk pass first culls each chunk's gathered list to the entries whose window meets the
+chunk, ``cull_area_plain`` / ``cull_slots_plain`` being its plain version), CPU tensors to the
+plain version, a Python loop over placements that evaluates each over its window and keeps
+the minimum (spiral rank, slot) key per voxel.
 
 Both versions evaluate a placement only inside the same per-type XZ window: the JAX
 program's window for the type (its radius table rounded up to its 16-block window
@@ -192,6 +194,94 @@ def apply_placements_area_plain(area_blocks, lists, origin_xz, ncx: int, ncz: in
 
     placed = best_key != INF
     return torch.where(placed, best_block.to(torch.uint8), area_blocks), placed
+
+
+def _cull_plain(L, src, cnt, chunk_pos, cave: bool, cull: bool):
+    """Plain version of K7's / K7s's pre-pass for one kind.  L: dict of [S, K] numpy fields;
+    src / cnt [B, 49]: each spiral rank's source row (any value where cnt is 0) and the count
+    its gathered index runs on.  Returns (lists [B, cap, 8] i32, zero past each chunk's
+    length; lengths [B] i32): every visible gathered entry whose window meets the chunk's
+    16 x 16 columns (every visible entry without ``cull``), in gathered order."""
+    cap = bio.MAX_GATHERED_CAVE_FEATURES_PER_CHUNK if cave else bio.MAX_GATHERED_FEATURES_PER_CHUNK
+    n_types = fd.NUM_CAVE_FEATURES if cave else fd.NUM_FEATURES
+    half = window_half_widths(cave)
+    K = L["feature"].shape[1]
+    B = src.shape[0]
+    out = np.zeros((B, cap, kernels.CANDIDATE_WORDS), np.int32)
+    lengths = np.zeros(B, np.int32)
+    gathered = np.cumsum(cnt, axis=1) - cnt  # the gathered index of each rank's first entry
+    visible = np.clip(np.minimum(np.minimum(cnt, K), cap - gathered), 0, None)
+    for b in range(B):
+        rows = np.concatenate([src[b, r] * K + np.arange(visible[b, r]) for r in range(src.shape[1])])
+        rows = rows.astype(np.int64)
+        feat = L["feature"].reshape(-1)[rows]
+        x, z = L["x"].reshape(-1)[rows], L["z"].reshape(-1)[rows]
+        keep = (feat > 0) & (feat < n_types)
+        if cull:
+            f = np.where(keep, feat, 0)
+            x0, z0 = (int(v) for v in chunk_pos[b])
+            keep &= (x0 - x <= half[f, 1]) & (x0 + 15 - x >= -half[f, 0])
+            keep &= (z0 - z <= half[f, 1]) & (z0 + 15 - z >= -half[f, 0])
+        rows = rows[keep]
+        n = len(rows)
+        height = L["height"].reshape(-1)[rows] if cave else np.zeros(n, np.int32)
+        for w, v in enumerate((L["x"].reshape(-1)[rows], L["y"].reshape(-1)[rows], L["z"].reshape(-1)[rows],
+                               rows, L["feature"].reshape(-1)[rows], L["replace"].reshape(-1)[rows], height)):
+            out[b, :n, w] = v
+        lengths[b] = n
+    return torch.from_numpy(out), torch.from_numpy(lengths)
+
+
+def cull_area_plain(lists, chunk_pos, ncx: int, ncz: int, cave: bool, cull: bool = True):
+    """Plain version of K7's pre-pass for one kind over an ncx x ncz area: each consumer
+    chunk's gathered list (its sources inside the area in spiral order, ranked by their true
+    counts, cut at the gather cap), culled to the entries whose window meets the chunk.
+    lists: K6's dict of [B, K] i32 and [B] ``count``; chunk_pos [B, 2].  Returns CPU tensors
+    (lists [B, cap, 8] i32, lengths [B] i32), ``_cull_plain``'s."""
+    B = ncx * ncz
+    L = {k: v.cpu().numpy() for k, v in lists.items() if k != "count"}
+    count = lists["count"].cpu().numpy()
+    src = np.zeros((B, len(GATHER_OFFSETS)), np.int64)
+    cnt = np.zeros((B, len(GATHER_OFFSETS)), np.int64)
+    for cb in range(B):
+        vz, vx = divmod(cb, ncx)
+        for r, (ox, oz) in enumerate(GATHER_OFFSETS):
+            sx, sz = vx + int(ox), vz + int(oz)
+            if 0 <= sx < ncx and 0 <= sz < ncz:
+                src[cb, r] = sz * ncx + sx
+                cnt[cb, r] = count[src[cb, r]]
+    return _cull_plain(L, src, cnt, chunk_pos.cpu().numpy(), cave, cull)
+
+
+def cull_slots_plain(d_lists, nslots, chunk_pos, cave: bool, cull: bool = True):
+    """Plain version of K7s's pre-pass for one kind: chunk b's sources are the slot table's
+    rows ``nslots[b]`` ([B, 49]), ranked by min(count, K), the valid entries their lists hold.
+    d_lists: dict of [C, K] i32 and [C] ``count``.  Returns (lists [B, cap, 8] i32, lengths [B])."""
+    L = {k: v.cpu().numpy() for k, v in d_lists.items() if k != "count"}
+    src = nslots.cpu().numpy().astype(np.int64)
+    cnt = np.minimum(d_lists["count"].cpu().numpy()[src], L["feature"].shape[1])
+    return _cull_plain(L, src, cnt, chunk_pos.cpu().numpy(), cave, cull)
+
+
+def _culled_to_list(culled, n: int, cave: bool):
+    """The first ``n`` entries of one chunk's culled list ([cap, 8] i32) as a placement list
+    (dict of [n] i32: feature, x, y, z, replace (, height)) for ``apply_placements_plain``."""
+    out = {"feature": culled[:n, 4], "x": culled[:n, 0], "y": culled[:n, 1], "z": culled[:n, 2],
+           "replace": culled[:n, 5]}
+    if cave:
+        out["height"] = culled[:n, 6]
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def apply_culled_plain(blocks, surface, cave, chunk_pos):
+    """Each chunk's blocks [B, 16, 16, 384] u8 with its culled lists applied by the per-chunk
+    plain application (every entry over the whole chunk, first hit wins): surface and cave are
+    (lists [B, cap, 8], lengths [B]) of the pre-pass."""
+    return torch.stack([
+        apply_features_chunk_plain(
+            blocks[b], _culled_to_list(surface[0][b], int(surface[1][b]), False),
+            _culled_to_list(cave[0][b], int(cave[1][b]), True), chunk_pos[b].cpu())
+        for b in range(blocks.shape[0])])
 
 
 def apply_features_area_plain(blocks, surface_lists, cave_lists, chunk_pos, ncx: int, ncz: int):

@@ -1,9 +1,11 @@
 """Stage 5: chunk fill, a u8 block id for every block of [B, 16, 16, 384] (kernel K4).
 
 Port of ``mega_minecraft_tpu/terrain/fill.py:48-410``.  ``fill_chunks`` dispatches on
-the device: CUDA tensors go to ``csrc/fill.cu`` (one thread per block, one CUDA block
-per column); CPU tensors go to the plain version below, which is the JAX program's
-priority cascade of masked selects, evaluated on the whole volume.
+the device: CUDA tensors go to ``csrc/fill.cu`` (a CTA a tile of ``FILL_TILE_COLS`` columns:
+every block's cascade, then the cave-biome and lush clay work packed into full warps, the clay
+test's Worley cells hashed once a tile into a table of ``LUSH_TABLE_CELLS``); CPU tensors go to
+the plain version below, which is the JAX program's priority cascade of masked selects,
+evaluated on the whole volume.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from .. import kernels
 from ..ops import hashes
 from ..ops.hashes import div
 from ..ops.noise import fbm2, fbm3_from3, simplex2, simplex3, worley3
-from ..tables import CAVE_BIOME_Y_MAX, SEED_FILL_CAVE_BIOME, Y_SIZE
+from ..tables import CAVE_BIOME_Y_MAX, LUSH_TABLE_CELLS, SEED_FILL_CAVE_BIOME, Y_SIZE
 from .caves import get_cave_biome
 from .heightfield import column_world_coords
 
@@ -145,6 +147,18 @@ def _biome_postprocess(block, rand_biome, wx, wyf, wz, is_top):
     return _sel(mount, _B.SNOW, block)
 
 
+def lush_clay_point(wxf, wyf, wzf):
+    """The point of a lush cave's clay test (fill.py:263-265): a near block of a lush cave is
+    clay where the Worley F1 there is below 0.25, else moss.  f32 world coordinates -> (px,
+    py, pz) in Worley cells."""
+    nx = wxf * 0.025
+    ny = wyf * 0.025
+    nz = wzf * 0.025
+    ny2 = ny + 192031.9821
+    ox, oy, oz = fbm3_from3(nx * 0.4, ny2 * 0.4, nz * 0.4, octaves=3)
+    return nx + ox * 2.0, ny2 + oy * 2.0, nz + oz * 2.0
+
+
 def _cave_biome_postprocess(block, cave_biome, wx, wyf, wz, bottom_depth, top_depth):
     """caveBiomeBlockPostProcess (fill.py:224-280); wx / wz [..., 1] f32."""
     wxy = wx.expand_as(wyf)
@@ -166,16 +180,11 @@ def _cave_biome_postprocess(block, cave_biome, wx, wyf, wz, bottom_depth, top_de
     block = _sel(cobble_stone, _B.COBBLESTONE, block)
     block = _sel(cobble_deep, _B.COBBLED_DEEPSLATE, block)
 
-    nx = wxy * 0.025
-    ny = wyf * 0.025
-    nz = wzy * 0.025
-    thr = 1.5 + 4.5 * simplex3(nx, ny, nz)
+    thr = 1.5 + 4.5 * simplex3(wxy * 0.025, wyf * 0.025, wzy * 0.025)
     bd = bottom_depth.to(torch.float32)
     td = top_depth.to(torch.float32)
     near = ((bd >= 0.0) & (bd <= thr)) | ((td >= 0.0) & (td <= thr))
-    ny2 = ny + 192031.9821
-    ox, oy, oz = fbm3_from3(nx * 0.4, ny2 * 0.4, nz * 0.4, octaves=3)
-    clay_n = worley3(nx + ox * 2.0, ny2 + oy * 2.0, nz + oz * 2.0)["f1"]
+    clay_n = worley3(*lush_clay_point(wxy, wyf, wzy))["f1"]
     lush = cb_is(bio.CaveBiome.LUSH_CAVES) & stone_like & near
     clay_or_moss = torch.where(clay_n < 0.25, _u8(_B.CLAY, block), _u8(_B.MOSS, block))
     block = _sel(lush, clay_or_moss, block)
@@ -269,6 +278,7 @@ def fill_chunks_plain(heightfield, biome_weights, layers, cave_starts, cave_ends
 def fill_chunks(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos):
     """Stage 5: K4 on CUDA, the plain version on the CPU."""
     if heightfield.is_cuda:
-        return kernels.fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos)
+        return kernels.fill(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos,
+                            LUSH_TABLE_CELLS)
     kernels.require_cpu(heightfield)
     return fill_chunks_plain(heightfield, biome_weights, layers, cave_starts, cave_ends, chunk_pos)

@@ -4,7 +4,10 @@ CPU, K1-K8 for the featured 5x5 bench area against the plain chain run on the ca
 on the two ``golden_erosion.npz`` grids against the plain erosion on the CPU (bit for
 bit, with the same sweep counts), K3 with its Worley cell table and with every tile on
 its direct path, bit for bit against the plain version (cave arrays and carve band) at
-the golden chunks and two far ones, and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
+the golden chunks and two far ones; K4 with its lush-cave cell table and with every tile on
+its direct path, bit for bit against the plain version at golden and far chunks that hold
+lush blocks (one past |x| = 671,088,640); K7 and K7s (also without its cull) on synthetic lists that overflow K and the gather cap, bit for bit against
+the plain versions, their pre-pass lists too; and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
 K7's pre-kernel, K4, K7s, K8) whose filled chunks must equal the featured area path
 over all their sources.  The render path: K10 (scene fields, bit for bit), K11t (the
 DDA of 1080p-camera primary rays: hit, block, normal and t equal), K11 (a 64x64 tile of
@@ -49,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from mega_minecraft_tpu_torch import kernels
+from mega_minecraft_tpu_torch import kernels, tables
 from mega_minecraft_tpu_torch.render import (brickmap, camera, denoise, materials, reproject, sky, tonemap,
                                              tracer)
 from mega_minecraft_tpu_torch.terrain import (caves, decorators, erosion, feature_placement, features,
@@ -256,6 +259,70 @@ def test_carve_kernel_matches_plain_on_gpu(cuda_device, table_cells):
         assert torch.equal(got[key], value), key
     assert 27 <= largest <= caves.CELL_TABLE_CAP
     assert (direct == 0) if table_cells else (direct > 0)
+
+
+#: chunk origins (blocks) of K4's checks: golden chunks and far ones, the last past
+#: |x| = 671,088,640 (its lush clay cells past 2^24); together they hold lush blocks
+FILL_CHUNKS = [(0, 0), (592, -368), (-160, -160), (1048576, -1048576), (-2000000, 3000000),
+               (671089664, -671092736)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_cells", [tables.LUSH_TABLE_CELLS, 0], ids=["table", "direct"])
+def test_fill_kernel_lush_chunks_match_plain_on_gpu(cuda_device, table_cells):
+    """K4 with its lush-cave cell table and with every tile on the direct path (capacity 0),
+    bit for bit against the plain version, on chunks whose lush blocks take the clay test."""
+    st = [layers.layers_from_halo_plain(*heightfield.generate_heightfield_plain(p), p, 1, 1)
+          for p in (pipeline.chunk_positions(ox // 16 - 1, oz // 16 - 1, 3, 3, device=cuda_device)
+                    for ox, oz in FILL_CHUNKS)]
+    hf, w, ls, pos = (torch.cat([d[k] for d in st]) for k in ("heightfield", "biome_weights", "layers", "chunk_pos"))
+    cv = caves.generate_caves_plain(hf, w, pos)
+    stats = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    got = kernels.fill(hf, w, ls, cv["starts"], cv["ends"], pos, table_cells, stats)
+    queued, lush, largest, direct = stats.tolist()
+    assert torch.equal(got, fill.fill_chunks_plain(hf, w, ls, cv["starts"], cv["ends"], pos))
+    assert queued > 0 and lush > 0 and 27 <= largest <= tables.LUSH_TABLE_CELLS
+    assert (direct == 0) if table_cells else (direct > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overflow", [False, True], ids=["free", "overflow"])
+def test_features_kernels_synthetic_lists_match_plain_on_gpu(cuda_device, overflow):
+    """K7 and K7s (with and without its cull) on a strip of stone chunks whose lists overflow
+    K and the gather cap, bit for bit against the plain versions, their pre-pass lists too."""
+    from test_torch_feature_cull import _overflowing, _slot_table, _strip
+
+    blocks, lists, pos = _strip()
+    if overflow:
+        lists = _overflowing(lists)
+    to = lambda d: {k: v.to(cuda_device) for k, v in d.items()}  # noqa: E731
+    blocks_d, pos_d, lists_d = blocks.to(cuda_device), pos.to(cuda_device), {k: to(d) for k, d in lists.items()}
+    streams = kernels.feature_streams(lists_d["surface"], lists_d["cave"])
+    got, got_lists = kernels.features(blocks_d, lists_d["surface"], lists_d["cave"], *streams, pos_d, 3, 1,
+                                      want_lists=True)
+    want = features.apply_features_area_plain(blocks, lists["surface"], lists["cave"], pos, 3, 1)
+    assert torch.equal(got.cpu(), want)
+    for kind in ("surface", "cave"):
+        p_lists, p_len = features.cull_area_plain(lists[kind], pos, 3, 1, kind == "cave")
+        k_lists, k_len = got_lists[kind]
+        assert torch.equal(k_len.cpu(), p_len)
+        keep = torch.arange(p_lists.shape[1])[None, :] < p_len[:, None]
+        assert torch.equal(k_lists.cpu()[keep][:, :7], p_lists[keep][:, :7])
+
+    table, nslots = _slot_table(lists, 3, 1)
+    table_d = {k: to(d) for k, d in table.items()}
+    sstreams = kernels.feature_streams(table_d["surface"], table_d["cave"])
+    want = features.apply_features_slots_plain(blocks, table["surface"], table["cave"], nslots, pos)
+    for cull in (True, False):
+        got, got_lists = kernels.features_slots(blocks_d, table_d["surface"], table_d["cave"], *sstreams,
+                                                nslots.to(cuda_device), pos_d, cull=cull, want_lists=True)
+        assert torch.equal(got.cpu(), want), cull
+        for kind in ("surface", "cave"):
+            p_lists, p_len = features.cull_slots_plain(table[kind], nslots, pos, kind == "cave", cull)
+            k_lists, k_len = got_lists[kind]
+            assert torch.equal(k_len.cpu(), p_len)
+            keep = torch.arange(p_lists.shape[1])[None, :] < p_len[:, None]
+            assert torch.equal(k_lists.cpu()[keep][:, :7], p_lists[keep][:, :7])
 
 
 @pytest.mark.cuda
@@ -608,7 +675,7 @@ def test_dp_layers_kernel_matches_plain_and_area_path_on_gpu(cuda_device):
     blocks = sharding.dp_generate(sharding.Mesh([cuda_device] * 1), pos)
     empty = torch.full((1, 16, 16, 32), 384, dtype=torch.int32, device=cuda_device)
     assert torch.equal(blocks, kernels.fill(st["heightfield"], st["biome_weights"], st["layers"],
-                                            empty, empty, pos))
+                                            empty, empty, pos, tables.LUSH_TABLE_CELLS))
 
 
 @pytest.mark.cuda

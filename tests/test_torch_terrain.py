@@ -225,7 +225,7 @@ def test_stage_on_unsupported_device_raises():
                              torch.zeros((1, 20, 16, 16)).transpose(2, 3),
                              torch.zeros((1, 16, 16, 32), dtype=torch.int32),
                              torch.zeros((1, 16, 16, 32), dtype=torch.int32),
-                             torch.zeros((1, 2), dtype=torch.int32)),
+                             torch.zeros((1, 2), dtype=torch.int32), tables.LUSH_TABLE_CELLS),
         lambda: kernels.layers(torch.zeros((9, 16, 16)), torch.zeros((9, 24, 16, 16)),
                                torch.zeros((9, 2), dtype=torch.int32), 2, 1),
         lambda: kernels.dp_layers(torch.zeros((4, 2))),
@@ -236,9 +236,18 @@ def test_stage_on_unsupported_device_raises():
                               torch.zeros((1, 2), dtype=torch.int32), -1),
         lambda: kernels.caves(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
                               torch.zeros((1, 2), dtype=torch.int32), kernels.MAX_TABLE_CELLS + 1),
+        lambda: kernels.fill(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
+                             torch.zeros((1, 20, 16, 16)), torch.zeros((1, 16, 16, 32), dtype=torch.int32),
+                             torch.zeros((1, 16, 16, 32), dtype=torch.int32),
+                             torch.zeros((1, 2), dtype=torch.int32), tables.LUSH_TABLE_CELLS + 1),
+        lambda: kernels.fill(torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)),
+                             torch.zeros((1, 20, 16, 16)), torch.zeros((1, 16, 16, 32), dtype=torch.int32),
+                             torch.zeros((1, 16, 16, 32), dtype=torch.int32),
+                             torch.zeros((1, 2), dtype=torch.int32), tables.LUSH_TABLE_CELLS,
+                             torch.zeros(3, dtype=torch.int32)),
     ],
     ids=["dtype", "shape", "batch", "contiguity", "halo-shape", "dp-layers-dtype", "erosion-band-shape",
-         "caves-table-cells", "caves-table-too-large"],
+         "caves-table-cells", "caves-table-too-large", "fill-table-too-large", "fill-stats-shape"],
 )
 def test_kernel_wrappers_validate_before_launch(call):
     before = kernels.launch_counts()

@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Time K4 (chunk fill), K7 (area feature application) and K7s (the scheduler's per-chunk
+feature application) of two or more checkouts of the port, in turns, on one GPU.
+
+Usage (on a machine with a CUDA GPU), e.g. a parent commit unpacked under build/:
+
+    python3 tools/kernel_ab.py build/parent . . build/parent [--reps 20]
+
+Each root runs in its own process, in the order given, and builds its own kernels (into
+ROOT/build/mmt_kernels; the first build of a root prints ptxas's registers and spills of
+the K4 and K7 kernels).  A run prints the card's name and power limit, then one JSON line:
+at the 5x5 and 33x33 areas of chip_smoke.py (chunk (0, 0) and (-16, -16)), K4 and K7 a call
+(CUDA events, warm) and on the device (torch.profiler, the mean span of each kernel's
+launches), the featured slice (generate_area_fused(..., features=True)), and K7s on 16
+chunks (4 x 4 in the middle of the 33x33 area, their 49 sources' lists as a slot table).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import inspect
+import io
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+KERNEL_NAMES = ("fill_kernel", "features_kernel", "features_slots_kernel", "cull_kernel")
+
+
+def cuda_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_ms(torch, fn, reps):
+    """{kernel name: ms a call}: each kernel that ``fn`` launches once a call, its mean span."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in KERNEL_NAMES if re.search(rf"\b{k}\b", ev.name)), None)
+            if name is not None:
+                spans.setdefault(name, []).append(ev.time_range.end - ev.time_range.start)
+    return {k: sum(v) / len(v) / 1e3 for k, v in spans.items()}
+
+
+def worker(root: str, reps: int) -> None:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from mega_minecraft_tpu_torch import kernels, tables
+    from mega_minecraft_tpu_torch.kernels import _build
+    from mega_minecraft_tpu_torch.terrain import caves, feature_placement as fp, pipeline
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, build_s, built = _build.build(verbose=True)
+    if built:  # ptxas's lines for the kernels of K4 and K7
+        lines = log.getvalue().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(k in line for k in KERNEL_NAMES):
+                print(line.split("'")[1], "|", lines[i + 2].strip(), "|", lines[i + 3].strip())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    table = (tables.LUSH_TABLE_CELLS,) if "table_cells" in inspect.signature(kernels.fill).parameters else ()
+    out = {"root": root, "card": smi, "build_s": round(build_s, 1)}
+    for n, first in ((5, -1), (33, -17)):  # the areas' first halo chunk, as chip_smoke.py's
+        pos = pipeline.chunk_positions(first, first, n + 2, n + 2, device=dev)
+        hf, w = kernels.heightfield(pos)
+        st = kernels.layers(hf, w, pos, n, n)
+        cv = kernels.caves(st["heightfield"], st["biome_weights"], st["chunk_pos"], caves.CELL_TABLE_CAP)
+        args4 = (st["heightfield"], st["biome_weights"], st["layers"], cv["starts"], cv["ends"], st["chunk_pos"])
+        base = kernels.fill(*args4, *table)
+        grids = kernels.placements(*args4[:5], cv["bottom_biome"], cv["top_biome"], st["chunk_pos"])
+        lists = kernels.compact_placements(grids, st["chunk_pos"])
+        streams = kernels.feature_streams(lists["surface"], lists["cave"])
+        calls = {"fill": lambda: kernels.fill(*args4, *table),
+                 "features": lambda: kernels.features(base, lists["surface"], lists["cave"], *streams,
+                                                      st["chunk_pos"], n, n)}
+        if n == 33:  # K7s on the middle 4 x 4 chunks, the area's lists as the slot table
+            sel = [(16 + dz) * 33 + 16 + dx for dz in range(4) for dx in range(4)]
+            nslots = torch.tensor([[(sz + int(oz)) * 33 + sx + int(ox) for ox, oz in fp.GATHER_OFFSETS]
+                                   for sz, sx in (divmod(b, 33) for b in sel)], dtype=torch.int32, device=dev)
+            rows = torch.tensor(sel, device=dev)
+            blocks16, pos16 = base[rows].contiguous(), st["chunk_pos"][rows].contiguous()
+            calls["features_slots"] = lambda: kernels.features_slots(
+                blocks16, lists["surface"], lists["cave"], *streams, nslots, pos16)
+        for name, fn in calls.items():
+            out[f"{name}_{n}_ms"] = cuda_ms(torch, fn, reps if n == 5 else max(3, reps // 5))
+            out[f"{name}_{n}_dev"] = device_ms(torch, fn, reps if n == 5 else max(3, reps // 5))
+        out[f"slice_{n}_ms"] = cuda_ms(torch, lambda: pipeline.generate_area_fused(pos, n, n, features=True),
+                                       reps if n == 5 else max(3, reps // 5))
+    print(json.dumps(out))
+
+
+def main(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("roots", nargs="+", help="checkouts of the port, run in this order")
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        worker(args.roots[0], args.reps)
+        return
+    for root in args.roots:
+        run = subprocess.run([sys.executable, __file__, "--worker", root, "--reps", str(args.reps)],
+                             capture_output=True, text=True)
+        print(run.stdout, end="")
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"kernel_ab: the run of {root} failed ({run.returncode})")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
