@@ -22,6 +22,10 @@ Phases, each of which raises (non-zero exit) on failure:
      pre-pass lists (each chunk's culled gathered entries) against ``features.cull_area_plain``
      wherever K7 is checked, with the candidate counts printed (visible entries, survivors);
      and K7 on synthetic lists that overflow K6's list, the gather cap and cross-chunk priority;
+     K5 here and wherever it is checked below bit for bit, also on the far chunks; K7's stream
+     pre-kernel (K7a) here and wherever it is checked below into NaN-filled
+     outputs: its valid rows (slot < min(count, K)) bit for bit against ``draw_streams_plain``,
+     every other row still NaN, and K7 / K7s then run on those rows;
   4. hold K1-K3 against ``tests/golden/golden_chunks.npz`` and the featured 7x7 areas
      around the four chunks of ``tests/golden/golden_blockgrid.npz`` against its
      ``pre_*`` (fill + features) and ``post_*`` (after decorators) centre chunks, at
@@ -33,11 +37,14 @@ Phases, each of which raises (non-zero exit) on failure:
      the same inputs; the featureless 5x5 run likewise, which must equal the middle of
      the featureless 33x33 run bit for bit; then the featured 33x33 area, whose middle
      5x5 chunks must equal those of a featured 11x11 run (both see full 49-chunk
-     neighbourhoods), and bedrock at y = 0 in every column; K3, K4 and K7 (its blocks and
-     its pre-pass lists) against their plain versions at the 5x5 and the 33x33 shapes;
+     neighbourhoods), and bedrock at y = 0 in every column; K3, K4, K5, K7a and K7 (its blocks
+     and its pre-pass lists) against their plain versions at the 5x5 and the 33x33 shapes, and
+     the 33x33 slice's lists against K6's plain version on K5's plain grids;
   6. time the slices, the feature half and every kernel (and its plain version at the
-     5x5 shapes) warm with CUDA events, K3's, K4's and K7's device time under torch.profiler,
-     and compute every kernel's bound (K4's also with every lush block hashing its cells);
+     5x5 shapes) warm with CUDA events, K3's, K4's, K5's, K7a's and K7's
+     device time under torch.profiler, and compute every kernel's bound (K4's also with every
+     lush block hashing its cells); K5's walk replayed (``k5_work``): draws and position tests a
+     column, and the test sites a warp runs;
   7. hold K9 (zone erosion) against its plain version bit for bit, with the same sweep
      counts, and against ``tests/golden/golden_erosion.npz`` at tests/test_golden.py's
      gate; generate the eroded featured 24x24 area through ``pipeline.generate_area(...,
@@ -45,16 +52,20 @@ Phases, each of which raises (non-zero exit) on failure:
      layers against the plain chain, and time K9 per zone;
   8. drain ``scheduler.make_scheduler(1024, radius=8, skip_erosion=True, native=True)``
      with the counts reset around it (one launch per kernel per stage dispatch): every
-     filled chunk must equal the featured area path in every field; K2s and K7s against
-     their plain versions on their stage's first and largest batch; K7s's window cull
-     against none on every filled chunk;
+     filled chunk must equal the featured area path in every field; K5 on the first and
+     largest placement batch read from the slot table; K7a rerun over every placement batch
+     into NaN-filled slot tables through its rows, equal to the drain's own rows (written in
+     place) and the plain streams; K2s and K7s (on the NaN-filled tables) against their plain
+     versions on their stage's first and largest batch; K7s's window cull against none on
+     every filled chunk, and with K8 against the drain's blocks;
   9. drain the reference workload, ``make_scheduler(radius=None, skip_erosion=False,
      native=True)`` (the radius-40 spiral, 1,089 drawable chunks), with the counts reset
      around it; replay its first zone erosion through the plain versions; K3 against its
      plain version on its largest caves batch, K4, K7s and K7s's pre-pass lists on its largest
      fill batch; time K2s and K7s at its largest batches against their plain versions (K7s's
      device time too); drain it again with the
-     ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share;
+     ``StageTimer`` and once more under ``torch.profiler`` for the device's busy share (and
+     K5's and K7a's device seconds);
  10. the render path's main run, as bench_render.py drives it, with the counts reset just
      before and read just after: ``brickmap.build_scene`` of the 10x10 bench scene (four
      featured 5x5 areas tiled as tools/scenelib.py tiles them) (K10), ``tracer.trace`` of
@@ -164,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -383,6 +395,154 @@ def check_dict_equal(prefix, got, want):
         else:
             mx = max(mx, check_equal(f"{prefix} {k}", got[k], want[k]))
     return mx
+
+
+def check_k5(tag, args5, want):
+    """K5 against the plain version's grids ``want``, bit for bit; 0.0 (the max |diff|) or a
+    failure."""
+    from mega_minecraft_tpu_torch import kernels
+
+    got = kernels.placements(*args5)
+    check(sorted(got) == sorted(want), f"{tag} K5: keys {sorted(got)} != {sorted(want)}")
+    diff = {k: int((got[k] != want[k]).sum()) for k in want}
+    n = sum(v.numel() for v in want.values())
+    print(f"  {tag} K5: {sum(diff.values())} of {n} values differ")
+    check(not any(diff.values()), f"{tag} K5: values differ from the plain version {diff}")
+    return 0.0
+
+
+def k5_work(args5):
+    """K5's walk replayed from its plain version's control flow (``generate_placements_plain``):
+    per column its draws and its position tests (``is_feature_pos``, two sin-hashes, run only
+    where every cheaper condition holds), and per warp of 32 columns the distinct (layer, slot,
+    gen) sites at which any lane draws or tests.  The layer, slot and gen loops are the same for
+    every lane, so a warp runs a site's test once for all its lanes: those sites are its work.
+    Returns {"draws", "tests": [B * 256], "warp_draws", "warp_tests": [B * 8], "placed": the
+    features placed (the plain version's count, a check of the replay)}."""
+    from mega_minecraft_tpu_torch.ops import hashes
+    from mega_minecraft_tpu_torch.terrain import feature_placement as fp
+    from mega_minecraft_tpu_torch.terrain.fill import random_biome
+    from mega_minecraft_tpu_torch.terrain.heightfield import column_world_coords
+    from mega_minecraft_tpu_torch.world import biomes as bio, features_data as fd
+
+    hf, w, ls, starts, ends, bottom, top_biome, pos = args5
+    dev, B = hf.device, hf.shape[0]
+    wx, wz = column_world_coords(pos)
+    ground = hf.to(torch.int32)
+    state = hashes.seed_3(wx, wz, fp.SEED_COLUMN)
+    work = {k: torch.zeros(B * (256 if k in ("draws", "tests") else 8), dtype=torch.int32, device=dev)
+            for k in ("draws", "tests", "warp_draws", "warp_tests")}
+    placed_n = 0
+
+    def site(drawn, tested):
+        for k, m in (("draws", drawn), ("tests", tested)):
+            m = m.reshape(-1)
+            work[k] += m.to(torch.int32)
+            work["warp_" + k] += m.reshape(-1, 32).any(1).to(torch.int32)
+
+    ct = fp._table(fd.CAVE_FEATURE_GEN_TABLE, dev)
+    broken = torch.zeros_like(ground, dtype=torch.bool)
+    surface_is_cave = torch.zeros_like(broken)
+    for li in range(fp.MAX_LAYERS):
+        start, end = starts[..., li], ends[..., li]
+        stop_here = (start == 384) | (ground <= start)
+        active = ~broken & ~stop_here
+        for top in (False, True):
+            layer_ok = active & (end != 384) if top else active
+            biome = (top_biome if top else bottom)[..., li].long()
+            lava_y = end if top else start + 1
+            placed = torch.zeros_like(broken)
+            for g in range(fd.CAVE_FEATURE_GEN_TABLE["max_gens"]):
+                in_loop = layer_ok & ~placed & (g < ct["count"][biome])
+                r, state = fp._masked_u01(state, in_loop)
+                feat = ct["feature"][:, g][biome]
+                cheap = (in_loop & (r < ct["chance"][:, g][biome]) & (ct["from_ceiling"][:, g][biome] == top)
+                         & (ct["in_lava"][:, g][biome] | (lava_y > bio.LAVA_LEVEL))
+                         & (end - start >= ct["min_height"][:, g][biome]))
+                seed = feat * (fp.SEED_CAVE_TOP_F if top else fp.SEED_CAVE_BOTTOM_F) + li * (
+                    fp.SEED_CAVE_TOP_L if top else fp.SEED_CAVE_BOTTOM_L)
+                ok = cheap & fp.is_feature_pos(wx, wz, ct["cell"][:, g][biome], ct["padding"][:, g][biome], seed)
+                site(in_loop, cheap)
+                placed = placed | ok
+            placed_n += int(placed.sum())
+        surface_here = active & (ground > start) & (ground <= end)
+        surface_is_cave = surface_is_cave | surface_here
+        broken = broken | stop_here | surface_here
+    st = fp._table(fd.FEATURE_GEN_TABLE, dev)
+    do_surface = ~surface_is_cave
+    site(do_surface, torch.zeros_like(do_surface))
+    r_biome, state = fp._masked_u01(state, do_surface)
+    biome = random_biome(w.permute(0, 2, 3, 1), r_biome).long()
+    layer_starts = ls.permute(0, 2, 3, 1)
+    placed = torch.zeros_like(broken)
+    for g in range(fd.FEATURE_GEN_TABLE["max_gens"]):
+        in_loop = do_surface & ~placed & (g < st["count"][biome])
+        r, state = fp._masked_u01(state, in_loop)
+        ntl = st["n_top_layers"][:, g][biome]
+        can_place = ntl == 0
+        for t in range(st["top_layer_mat"].shape[-1]):
+            mat = st["top_layer_mat"][:, g, t][biome].long()
+            l_start = torch.gather(layer_starts, -1, mat[..., None])[..., 0]
+            l_end = torch.gather(layer_starts, -1, (mat + 1).clamp(max=layer_starts.shape[-1] - 1)[..., None])[..., 0]
+            can_place = can_place | ((t < ntl) & (l_start <= hf) & (l_end >= hf)
+                                     & (torch.minimum(l_end, hf) - l_start >= st["top_layer_min"][:, g, t][biome]))
+        cheap = in_loop & (r < st["chance"][:, g][biome]) & can_place
+        feat = st["feature"][:, g][biome]
+        ok = cheap & fp.is_feature_pos(wx, wz, st["cell"][:, g][biome], st["padding"][:, g][biome],
+                                       feat * fp.SEED_SURFACE_POS)
+        site(in_loop, cheap)
+        placed = placed | ok
+    return {**work, "placed": placed_n + int(placed.sum())}
+
+
+def print_k5_work(n, args5, grids):
+    """``k5_work`` at an n x n area, checked against K5's grids, summed up in one line."""
+    wk = k5_work(args5)
+    check(wk["placed"] == int((grids["cave_feature"] > 0).sum()) + int((grids["surface_feature"] > 0).sum()),
+          f"K5's replayed walk at {n}x{n} places {wk['placed']} features, the grids hold another count")
+    d, t, wd, wt = (wk[k].double() for k in ("draws", "tests", "warp_draws", "warp_tests"))
+    lane_mean = t.reshape(-1, 32).mean(1)
+    # a warp's tests alone, two sin-hashes each, every add and multiply on its own (-fmad=false)
+    test_ms = float(wt.sum()) * 32 * 2 * SINHASH / (F32_OPS_PER_S / 2) * 1e3
+    print(f"    K5's walk at {n}x{n} ({wk['placed']} placed): a column {float(d.mean()):.2f} draws (max "
+          f"{int(d.max())}), {float(t.mean()):.2f} position tests (max {int(t.max())}); a warp draws at "
+          f"{float(wd.mean()):.1f} sites and tests at {float(wt.mean()):.1f} (max {int(wt.max())}), "
+          f"{float(wt.sum() / lane_mean.sum()):.1f}x its lanes' mean: {float(t.sum() / (32 * wt.sum())):.1%} of "
+          f"the test lanes busy; those tests alone at the card's f32 rate without FMA {test_ms:.4f} ms")
+
+
+def valid_rows(lists, K):
+    """[B, K] bool: the valid entries of a list (slot < min(count, K)), the rows K7a writes."""
+    n = torch.clamp(lists["count"], max=K)
+    return torch.arange(K, device=n.device)[None, :] < n[:, None]
+
+
+def check_streams(tag, got, want, lists):
+    """K7a's rows written into NaN-filled outputs (``got``) against ``draw_streams_plain``'s
+    (``want``): the valid rows bit for bit, every other row still NaN.  Returns the max |diff|."""
+    mx = 0.0
+    for kind in ("surface", "cave"):
+        g, w = got[kind == "cave"], want[kind == "cave"]
+        valid = valid_rows(lists[kind], g.shape[1])
+        same = torch.equal(g[valid].view(torch.int32), w[valid].view(torch.int32))
+        d = float((g[valid] - w[valid]).abs().max()) if bool(valid.any()) else 0.0
+        untouched = bool(torch.isnan(g[~valid]).all())
+        print(f"  {tag} streams {kind}: {int(valid.sum())} valid rows of {valid.numel()}, max |diff| {d:g}, "
+              f"the other rows {'untouched' if untouched else 'WRITTEN'}")
+        check(same, f"{tag} streams {kind}: valid rows differ from the plain version by {d}")
+        check(untouched, f"{tag} streams {kind}: a row past the valid ones was written")
+        mx = max(mx, d)
+    return mx
+
+
+def nan_streams(lists):
+    """K7a into NaN-filled [B, K, 64] outputs."""
+    from mega_minecraft_tpu_torch import kernels
+
+    n = lists["surface"]["x"].shape[0]
+    out = tuple(torch.full((n, K, kernels.STREAM_LEN), float("nan"), device=lists["surface"]["x"].device)
+                for K in (kernels.SURFACE_CAP, kernels.CAVE_CAP))
+    return kernels.feature_streams(lists["surface"], lists["cave"], out=out)
 
 
 def distinct_cells(cells, active):
@@ -699,11 +859,13 @@ def first_and_largest(log, name):
 
 
 def stream_phase(dev, stamp, err, smi):
-    """The radius-8 drain without erosion: filled chunks vs the area path, K2s and K7s vs
-    their plain versions on their stage's first and largest batch, K7s's window cull vs
-    none on every filled chunk."""
+    """The radius-8 drain without erosion: filled chunks vs the area path; K5 on the first and
+    largest placement batch; K7a rerun into NaN-filled slot tables against the drain's rows and
+    the plain streams; K2s and K7s (on those tables) vs their plain versions on their stage's
+    first and largest batch; K7s's window cull vs none on every filled chunk."""
     from mega_minecraft_tpu_torch import kernels
-    from mega_minecraft_tpu_torch.terrain import features, layers, pipeline, scheduler as sched
+    from mega_minecraft_tpu_torch.terrain import feature_placement as fp, features, layers, pipeline
+    from mega_minecraft_tpu_torch.terrain import scheduler as sched
 
     stamp("phase 8: make_scheduler(1024, radius=8, skip_erosion=True, native=True).drain()")
     log = DispatchLog(sched)
@@ -747,6 +909,33 @@ def stream_phase(dev, stamp, err, smi):
     for name, got, want in pairs:
         check_equal(f"drain {name}", got[slots], want[idx])
 
+    # K5 on the first and the largest placement batch, its inputs read from the slot table as
+    # the dispatch reads them (int16 / uint8 rows to int32)
+    for tag, (_, (sl_np, pos_np), _) in first_and_largest(log, "dispatch_feature_placements"):
+        sl, pos = t.upload(sl_np, pos_np)
+        rows = sl.long()
+        args5 = (t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows],
+                 *sched._cave_rows(t, rows, ("starts", "ends", "bottom", "top")), pos)
+        err["placements"] = max(err["placements"], check_k5(
+            f"the drain's {tag} placement batch ({len(sl_np)} chunks)", args5, fp.generate_placements_plain(*args5)))
+    # K7a again over every placement batch, into NaN-filled slot tables through its batch's rows:
+    # the valid rows equal the drain's own (written in place) and the plain streams, the others
+    # stay NaN; K7s below runs on these tables
+    nan_s, nan_c = torch.full_like(t.d_sstream, float("nan")), torch.full_like(t.d_cstream, float("nan"))
+    for _, (sl_np, pos_np), _ in (c for c in log.calls if c[0] == "dispatch_feature_placements"):
+        sl, _ = t.upload(sl_np, pos_np)
+        rows = sl.long()
+        kernels.feature_streams({k: v[rows] for k, v in t.d_sf.items()}, {k: v[rows] for k, v in t.d_cf.items()},
+                                out=(nan_s, nan_c), rows=sl)
+    lists_t = {"surface": t.d_sf, "cave": t.d_cf}
+    err["feature_streams"] = max(err["feature_streams"], check_streams(
+        "the drain's slot table", (nan_s, nan_c), features.draw_streams_plain(t.d_sf, t.d_cf), lists_t))
+    for kind, table, mine in (("surface", t.d_sstream, nan_s), ("cave", t.d_cstream, nan_c)):
+        valid = valid_rows(lists_t[kind], table.shape[1])
+        check(torch.equal(table[valid].view(torch.int32), mine[valid].view(torch.int32)),
+              f"the drain's {kind} stream rows differ from K7a's rerun")
+    print("  the drain's stream rows (written in place by dispatch_feature_placements) equal the rerun's")
+
     # K2s and K7s vs their plain versions on the first batch of their stage and on the
     # largest one (timed on the reference workload's largest batches, phase 9)
     err["layers_slots"] = 0.0
@@ -761,7 +950,7 @@ def stream_phase(dev, stamp, err, smi):
             f"K2s on the {tag} layers batch ({len(sl_np)} chunks)", k_out[rows], p_out[rows]))
         check(torch.equal(k_out[rows], t.d_layers[rows]), "K2s: the slot table differs from a rerun")
 
-    # K7s vs its plain version (the JAX semantics, no window)
+    # K7s vs its plain version (the JAX semantics, no window), on the NaN-filled stream tables
     stamp("phase 8b: K7s vs the plain per-chunk application on the first and the largest fill batch")
     err["features_slots"] = 0.0
     for tag, (_, (sl_np, pos_np, nb_np), _) in first_and_largest(log, "dispatch_fill"):
@@ -770,7 +959,7 @@ def stream_phase(dev, stamp, err, smi):
         hf, w, ls = t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows]
         cs, ce, cb = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends", "bottom"))
         base = fill_k(hf, w, ls, cs, ce, pos)
-        got = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
+        got = kernels.features_slots(base, t.d_sf, t.d_cf, nan_s, nan_c, nsl, pos)
         want = features.apply_features_slots_plain(base, t.d_sf, t.d_cf, nsl, pos)
         n_feat = int((want != base).sum())
         err["features_slots"] = max(err["features_slots"], check_equal(
@@ -779,18 +968,20 @@ def stream_phase(dev, stamp, err, smi):
         check(torch.equal(kernels.decorators(got, hf, w, cs, ce, cb, pos), t.d_blocks[rows]),
               f"K7s + K8 on the {tag} fill batch differ from the drain's blocks")
 
-    # the window cull against none, on every chunk the drain filled
-    n_chunks = n_diff = 0
+    # the window cull against none, on every chunk the drain filled; with K8, the drain's blocks
+    n_chunks = n_diff = n_drain = 0
     cull_ms = nocull_ms = 0.0
     for _, (sl_np, pos_np, nb_np), _ in (c for c in log.calls if c[0] == "dispatch_fill"):
         sl, pos, nsl = t.upload(sl_np, pos_np, nb_np)
         rows = sl.long()
-        cs, ce = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends"))
-        base = fill_k(t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows], cs, ce, pos)
-        a = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos)
-        b = kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream, t.d_cstream, nsl, pos, cull=False)
+        cs, ce, cb = (getattr(t, f"d_cave_{n}")[rows].to(torch.int32) for n in ("starts", "ends", "bottom"))
+        hf, w = t.d_heightfield[rows], t.d_weights[rows]
+        base = fill_k(hf, w, t.d_layers[rows], cs, ce, pos)
+        a = kernels.features_slots(base, t.d_sf, t.d_cf, nan_s, nan_c, nsl, pos)
+        b = kernels.features_slots(base, t.d_sf, t.d_cf, nan_s, nan_c, nsl, pos, cull=False)
         n_chunks += len(sl_np)
         n_diff += int((a != b).sum())
+        n_drain += int((kernels.decorators(a, hf, w, cs, ce, cb, pos) != t.d_blocks[rows]).sum())
         cull_ms += cuda_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream,
                                                           t.d_cstream, nsl, pos), 2)
         nocull_ms += cuda_ms(lambda: kernels.features_slots(base, t.d_sf, t.d_cf, t.d_sstream,
@@ -799,7 +990,10 @@ def stream_phase(dev, stamp, err, smi):
           f"differ; {cull_ms:.3f} ms with the cull, {nocull_ms:.3f} ms without, summed over the "
           f"fill batches")
     check(n_diff == 0, "K7s's window cull changes the blocks")
-    del s, t, area
+    print(f"  K7s on the NaN-filled stream tables + K8 vs the drain's blocks, every filled chunk: {n_drain} "
+          f"voxels differ")
+    check(n_drain == 0, "K7s on K7a's valid rows alone differs from the drain")
+    del s, t, area, nan_s, nan_c
 
 
 def time_stream_kernels(dev, t, log, err, times, bounds, smi):
@@ -969,6 +1163,9 @@ def reference_phase(dev, stamp, err, times, bounds, smi):
         print(f"  traced drain: {len(spans)} device events, device busy {busy / 1e6:.4f} s of the "
               f"clean drain's {secs:.4f} s, idle share {1 - busy / 1e6 / secs:.1%}; by name (s): "
               + ", ".join(f"{k} {v / 1e6:.4f}" for k, v in top))
+        for label, pattern in (("K5", r"\bplacements_kernel\b"), ("K7a", r"\bfeature_streams_kernel\b")):
+            sel = [b - a for a, b, name in spans if re.search(pattern, name)]
+            print(f"  traced drain, {label}: {len(sel)} device events, {sum(sel) / 1e6:.4f} s")
     else:
         print("  traced drain: the profiler recorded no device events; device busy: not measured")
     del s, prof
@@ -2254,19 +2451,15 @@ def main(argv):
         args5 = (hf_in, w_in, ls_in, cv_p["starts"], cv_p["ends"], cv_p["bottom_biome"],
                  cv_p["top_biome"], pos_in)
         pl_p = fp.generate_placements_plain(*args5)
-        e5 = check_dict_equal(f"{tag} K5", kernels.placements(*args5), pl_p)
+        e5 = check_k5(tag, args5, pl_p)
         lists_p = fp.compact_placements_plain(pl_p, pos_in)
         e6 = check_dict_equal(f"{tag} K6", kernels.compact_placements(pl_p, pos_in), lists_p)
         print(f"  {tag} placements per chunk: surface {lists_p['surface']['count'].tolist()}, "
               f"cave {lists_p['cave']['count'].tolist()}")
-        st_k = kernels.feature_streams(lists_p["surface"], lists_p["cave"])
-        st_p = features.draw_streams_plain(lists_p["surface"], lists_p["cave"])
-        es = 0.0
-        for name, got, want in zip(("surface", "cave"), st_k, st_p):
-            d = float((got - want).abs().max())
-            print(f"  {tag} streams {name}: max |diff| {d:g}")
-            check(d == 0.0, f"{tag} streams {name}: differ from the plain version by {d}")
-            es = max(es, d)
+        # K7a into NaN-filled rows: its valid rows against the plain streams, and K7 below on
+        # K7a's own rows, so that a row K7a skips and a consumer read would show
+        st_k = nan_streams(lists_p)
+        es = check_streams(tag, st_k, features.draw_streams_plain(lists_p["surface"], lists_p["cave"]), lists_p)
         feat_p, e7 = [], 0.0
         for i0, ncx, ncz in areas:
             nb = ncx * ncz
@@ -2275,8 +2468,8 @@ def main(argv):
             a = (bl_p[i0 : i0 + nb].contiguous(), sub["surface"], sub["cave"])
             pos_a = pos_in[i0 : i0 + nb].contiguous()
             want = features.apply_features_area_plain(*a, pos_a, ncx, ncz)
-            got, got_lists = kernels.features(*a, st_p[0][i0 : i0 + nb].contiguous(),
-                                              st_p[1][i0 : i0 + nb].contiguous(), pos_a, ncx, ncz,
+            got, got_lists = kernels.features(*a, st_k[0][i0 : i0 + nb].contiguous(),
+                                              st_k[1][i0 : i0 + nb].contiguous(), pos_a, ncx, ncz,
                                               want_lists=True)
             n_feat = int((want != a[0]).sum())
             e7 = max(e7, check_equal(f"{tag} K7 area@{i0} ({n_feat} feature blocks)", got, want),
@@ -2329,6 +2522,8 @@ def main(argv):
     cv_f = caves.generate_caves_plain(hf_f, w_f, pos_f)
     err["fill"] = max(err["fill"], check_k4(f"on the far chunks {FAR_CHUNKS}", hf_f, w_f, ls_f, cv_f["starts"],
                                             cv_f["ends"], pos_f))
+    args5_f = (hf_f, w_f, ls_f, cv_f["starts"], cv_f["ends"], cv_f["bottom_biome"], cv_f["top_biome"], pos_f)
+    err["placements"] = check_k5("far chunks", args5_f, fp.generate_placements_plain(*args5_f))
 
     stage_checks("7 chunks", hf_in, w_in, ls_in, cv_p, pos_in, bl_p,
                  [(i, 1, 1) for i in range(len(origins))])
@@ -2561,10 +2756,20 @@ def main(argv):
     cv33, pos33_in = out33["caves"], out33["chunk_pos"]
     err["fill"] = max(err["fill"], check_k4("at the 33x33 shapes", out33["heightfield"], out33["biome_weights"],
                                             out33["layers"], cv33["starts"], cv33["ends"], pos33_in))
-    # K7 at the 33x33 shapes: its pre-pass lists and its blocks against the plain versions
+    # K5 at the 33x33 shapes, and the slice's lists against K6's plain version on the plain grids
+    args5_33 = (out33["heightfield"], out33["biome_weights"], out33["layers"], cv33["starts"], cv33["ends"],
+                cv33["bottom_biome"], cv33["top_biome"], pos33_in)
+    pl33 = fp.generate_placements_plain(*args5_33)
+    err["placements"] = max(err["placements"], check_k5("33x33", args5_33, pl33))
     lists33 = out33["placements"]
-    got33, lists33_k = kernels.features(base33["blocks"], lists33["surface"], lists33["cave"],
-                                        *kernels.feature_streams(lists33["surface"], lists33["cave"]),
+    check_dict_equal("33x33 lists vs plain K6 of plain K5", lists33, fp.compact_placements_plain(pl33, pos33_in))
+    del pl33
+    # K7a into NaN-filled rows against the plain streams; K7 on those rows: its pre-pass lists and
+    # its blocks against the plain versions
+    st33 = nan_streams(lists33)
+    err["feature_streams"] = max(err["feature_streams"], check_streams(
+        "33x33", st33, features.draw_streams_plain(lists33["surface"], lists33["cave"]), lists33))
+    got33, lists33_k = kernels.features(base33["blocks"], lists33["surface"], lists33["cave"], *st33,
                                         pos33_in, 33, 33, want_lists=True)
     err["features"] = max(err["features"], check_k7_lists(
         "33x33", lists33_k, lambda kind, cull: features.cull_area_plain(lists33[kind], pos33_in, 33, 33,
@@ -2573,7 +2778,7 @@ def main(argv):
                                                 pos33_in, 33, 33)
     err["features"] = max(err["features"], check_equal(
         f"K7 at the 33x33 shapes ({int((want33 != base33['blocks']).sum())} feature blocks)", got33, want33))
-    del got33, lists33_k, want33
+    del got33, lists33_k, want33, st33
 
     # -- 6. timing (warm, CUDA events) ----------------------------------------------------
     stamp("phase 6: timing")
@@ -2633,6 +2838,8 @@ def main(argv):
         k3_dev = device_ms(calls["caves"][0], {"carve_kernel": 1, "column_kernel": 1}, max(reps, 10))
         k4_dev = device_ms(calls["fill"][0], {"fill_kernel": 1}, max(reps, 10))
         k7_dev = device_ms(calls["features"][0], {"cull_kernel": 1, "features_kernel": 1}, max(reps, 10))
+        k5_dev = device_ms(calls["placements"][0], {"placements_kernel": 1}, max(reps, 10))
+        k7a_dev = device_ms(calls["feature_streams"][0], {"feature_streams_kernel": 1}, max(reps, 10))
         counted = {"base_blocks": base_blocks, "caves": cv, "placement_grids": grids, **st}
         bounds[n] = {k: bound(*v) for k, v in
                      op_counts(n, pos, w, counted, lists, AREA_KERNELS).items()}
@@ -2643,6 +2850,11 @@ def main(argv):
         print(f"    caves (K3) on the device: {fmt_ms(k3_dev)} (carve, column: {k3_dev[0]})")
         print(f"    fill (K4) on the device: {fmt_ms(k4_dev)}; features (K7) on the device: {fmt_ms(k7_dev)} "
               f"(cull, columns: {k7_dev[0]})")
+        print_k5_work(n, args5, grids)
+        for label, name, dv in (("placements (K5)", "placements", k5_dev), ("feature_streams (K7a)",
+                                                                           "feature_streams", k7a_dev)):
+            share = f", {bounds[n][name][0] / sum(dv[0].values()):.2%} of the bound on the device" if dv[0] else ""
+            print(f"    {label}: a call {times[(name, n)][0]:.4f} ms, on the device {fmt_ms(dv)}{share}")
         for name in AREA_KERNELS:
             k, pl_ms = times[(name, n)]
             b_ms, b_by = bounds[n][name]

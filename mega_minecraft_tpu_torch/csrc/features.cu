@@ -37,8 +37,12 @@
 // launches: the JAX per-chunk program's semantics, which chip_smoke.py holds equal to the
 // culled kernel on every chunk it streams and to the plain version on the first batch.
 //
-// The 64 draws of a placement's stream do not depend on the voxel: the pre-kernel
-// writes them once per list entry ([B, K, 64] f32) and K7 reads them (broadcast loads).
+// The 64 draws of a placement's stream do not depend on the voxel: the pre-kernel writes
+// them once per VALID list entry (slot < min(count, K) of each chunk and kind, the only entries
+// the cull above can hand to the walk; the rows past them are left unwritten) into [B, K, 64]
+// f32 rows, and K7 reads them (broadcast loads).  A warp takes a row: lane j computes draws j
+// and j + 32 by a jump from the entry's seed (LCG_JUMP: a^(j+1) mod m, mmt_feature_tables.h),
+// the same integer states as stepping the stream, and the warp's two stores are coalesced.
 //
 // Bound on the H100: arithmetic and latency, not bytes (K7 must move 2 bytes per voxel,
 // one read and one write).  The SDFs run for the few voxels inside a placement's window
@@ -66,20 +70,36 @@ struct __align__(16) Candidate {
   int feat, replace, height, pad;
 };
 
-// thread (e, i) of the pre-kernel: entry e of the surface lists, then of the cave lists
-__global__ void feature_streams_kernel(const int* __restrict__ sx, const int* __restrict__ sy,
-                                       const int* __restrict__ sz, const int* __restrict__ cx,
-                                       const int* __restrict__ cy, const int* __restrict__ cz,
-                                       int n_surface, int n_cave, float* __restrict__ s_out,
-                                       float* __restrict__ c_out) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_surface + n_cave) return;
-  bool cave = e >= n_surface;
-  if (cave) e -= n_surface;
-  uint32_t state = cave ? seed_4(cx[e], cy[e], cz[e], SEED_CAVE_FEATURE_RNG)
-                        : seed_4(sx[e], sy[e], sz[e], SEED_SURFACE_FEATURE_RNG);
-  float* out = (cave ? c_out : s_out) + (size_t)e * STREAM_LEN;
-  for (int i = 0; i < STREAM_LEN; ++i) out[i] = lcg_u01(&state);
+// the pre-kernel's CTA: a chunk (blockIdx.x) and kind (blockIdx.y: 0 surface, 1 cave), a warp a
+// valid list entry in turn.  Row b of the batch goes to row rows[b] of the outputs (b without
+// rows); a row outside [0, n_rows) is skipped
+#define STREAM_THREADS 128
+static_assert(STREAM_LEN == 64, "a lane writes draws lane and lane + 32 of a row");
+
+__global__ void __launch_bounds__(STREAM_THREADS) feature_streams_kernel(
+    const int* __restrict__ sx, const int* __restrict__ sy, const int* __restrict__ sz,
+    const int* __restrict__ s_count, const int* __restrict__ cx, const int* __restrict__ cy,
+    const int* __restrict__ cz, const int* __restrict__ c_count, const int* __restrict__ rows, int n_rows,
+    float* __restrict__ s_out, float* __restrict__ c_out) {
+  const int b = blockIdx.x;
+  const bool cave = blockIdx.y != 0;
+  const int K = cave ? CHUNK_CAVE_FEATURE_CAP : CHUNK_FEATURE_CAP;
+  int n = (cave ? c_count : s_count)[b];
+  n = n < K ? n : K;
+  const int r = rows ? rows[b] : b;
+  if (n <= 0 || r < 0 || r >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const uint32_t jump_lo = LCG_JUMP[lane], jump_hi = LCG_JUMP[lane + 32];
+  const size_t in_row = (size_t)b * K;
+  const int *x = (cave ? cx : sx) + in_row, *y = (cave ? cy : sy) + in_row, *z = (cave ? cz : sz) + in_row;
+  const int seed = cave ? SEED_CAVE_FEATURE_RNG : SEED_SURFACE_FEATURE_RNG;
+  float* out = (cave ? c_out : s_out) + (size_t)r * K * STREAM_LEN;
+  for (int e = threadIdx.x >> 5; e < n; e += STREAM_THREADS / 32) {
+    const uint32_t state0 = seed_4(x[e], y[e], z[e], seed);
+    float* o = out + (size_t)e * STREAM_LEN;
+    o[lane] = lcg_value_at(state0, jump_lo);
+    o[lane + 32] = lcg_value_at(state0, jump_hi);
+  }
 }
 
 // the sources of a consumer chunk of an area: the chunks at GATHER_OFFSETS inside the
@@ -342,13 +362,14 @@ static int launch_columns(int B, const unsigned char* blocks, const float* s_str
   return (int)cudaGetLastError();
 }
 
-extern "C" int mmt_feature_streams(const int* sx, const int* sy, const int* sz, const int* cx,
-                                   const int* cy, const int* cz, int B, float* s_out, float* c_out,
+// rows: [B] i32 output rows of the batch's chunks, or null for rows 0..B-1; n_rows: the outputs'
+// rows ([n_rows, K, 64] each)
+extern "C" int mmt_feature_streams(const int* sx, const int* sy, const int* sz, const int* s_count,
+                                   const int* cx, const int* cy, const int* cz, const int* c_count,
+                                   const int* rows, int B, int n_rows, float* s_out, float* c_out,
                                    void* stream) {
-  int n_surface = B * CHUNK_FEATURE_CAP, n_cave = B * CHUNK_CAVE_FEATURE_CAP;
-  int n = n_surface + n_cave;
-  feature_streams_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      sx, sy, sz, cx, cy, cz, n_surface, n_cave, s_out, c_out);
+  feature_streams_kernel<<<dim3(B, 2), STREAM_THREADS, 0, (cudaStream_t)stream>>>(
+      sx, sy, sz, s_count, cx, cy, cz, c_count, rows, n_rows, s_out, c_out);
   return (int)cudaGetLastError();
 }
 

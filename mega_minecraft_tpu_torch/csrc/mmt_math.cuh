@@ -96,10 +96,9 @@ MMT_FN uint32_t lcg_pow(uint32_t k) {
   return result;
 }
 
-// the uniform value of 0-based draw j of the stream that starts at state0
-MMT_FN float lcg_value_at(uint32_t state0, uint32_t j) {
-  return lcg_value(lcg_mulmod(lcg_pow(j + 1u), state0));
-}
+// the uniform value of 0-based draw j of the stream that starts at state0, from the jump
+// multiplier a^(j+1) mod m (lcg_pow(j + 1), or a table of them)
+MMT_FN float lcg_value_at(uint32_t state0, uint32_t jump) { return lcg_value(lcg_mulmod(jump, state0)); }
 
 // ---------------------------------------------------------------------------
 // sin correctly rounded to f32 in double-single arithmetic (hashes.py:192-299)

@@ -328,7 +328,8 @@ def placements(heightfield, biome_weights, layers, cave_starts, cave_ends, cave_
                cave_top_biome, chunk_pos):
     """K5: -> dict of dense placement grids: surface_feature / surface_y [B,16,16] i32,
     surface_replace bool, cave_feature / cave_replace [B,16,16,32,2] i32 / bool, cave_y /
-    cave_height [B,16,16,32] i32."""
+    cave_height [B,16,16,32] i32.  The four cave inputs are read as 16-byte words: their base
+    must be 16-byte aligned (else ValueError)."""
     dev = heightfield.device
     B = heightfield.shape[0]
     _check(heightfield, "heightfield", torch.float32, (B, 16, 16), dev)
@@ -337,6 +338,8 @@ def placements(heightfield, biome_weights, layers, cave_starts, cave_ends, cave_
     for name, t in (("cave_starts", cave_starts), ("cave_ends", cave_ends),
                     ("cave_bottom_biome", cave_bottom_biome), ("cave_top_biome", cave_top_biome)):
         _check(t, name, torch.int32, (B, 16, 16, N_LAYERS), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: base not 16-byte aligned")
     _check(chunk_pos, "chunk_pos", torch.int32, (B, 2), dev)
 
     def e(shape, dtype):
@@ -393,21 +396,37 @@ def _check_lists(lists, fields, cap, B, dev, name):
     _check(lists["count"], f"{name}.count", torch.int32, (B,), dev)
 
 
-def feature_streams(surface_lists, cave_lists):
-    """K7's pre-kernel: the 64-draw stream of every list entry ->
-    (surface [B, 256, 64] f32, cave [B, 1024, 64] f32)."""
+def feature_streams(surface_lists, cave_lists, out=None, rows=None):
+    """K7's pre-kernel: the 64-draw stream of every VALID list entry (slot < min(count, K) of
+    each chunk and kind, the entries K7 / K7s can read) -> (surface [B, 256, 64] f32, cave
+    [B, 1024, 64] f32).  The rows past the valid ones are left unwritten (``torch.empty`` when
+    ``out`` is None).  ``out=(s, c)``, [C, 256, 64] / [C, 1024, 64] f32, takes the rows in
+    place: row b of the batch goes to ``out[rows[b]]`` (``rows`` [B] i32, each in [0, C); a
+    row outside is skipped), or to ``out[b]`` without ``rows``; returns ``out``."""
     dev = surface_lists["x"].device
     B = surface_lists["x"].shape[0]
-    for k in "xyz":
-        _check(surface_lists[k], f"surface.{k}", torch.int32, (B, SURFACE_CAP), dev)
-        _check(cave_lists[k], f"cave.{k}", torch.int32, (B, CAVE_CAP), dev)
-    s_out = torch.empty((B, SURFACE_CAP, STREAM_LEN), dtype=torch.float32, device=dev)
-    c_out = torch.empty((B, CAVE_CAP, STREAM_LEN), dtype=torch.float32, device=dev)
+    _check_lists(surface_lists, "xyz", SURFACE_CAP, B, dev, "surface")
+    _check_lists(cave_lists, "xyz", CAVE_CAP, B, dev, "cave")
+    if out is None:
+        if rows is not None:
+            raise ValueError("rows without out")
+        out = (torch.empty((B, SURFACE_CAP, STREAM_LEN), dtype=torch.float32, device=dev),
+               torch.empty((B, CAVE_CAP, STREAM_LEN), dtype=torch.float32, device=dev))
+    s_out, c_out = out
+    C = s_out.shape[0]
+    _check(s_out, "out surface", torch.float32, (C, SURFACE_CAP, STREAM_LEN), dev)
+    _check(c_out, "out cave", torch.float32, (C, CAVE_CAP, STREAM_LEN), dev)
+    if rows is None:
+        if C != B:
+            raise ValueError(f"out holds {C} rows for a batch of {B}: pass rows")
+    else:
+        _check(rows, "rows", torch.int32, (B,), dev)
     if B:
         with torch.cuda.device(dev):
             _launch("feature_streams", _build.load().mmt_feature_streams,
-                    *(_p(surface_lists[k]) for k in "xyz"), *(_p(cave_lists[k]) for k in "xyz"),
-                    B, _p(s_out), _p(c_out))
+                    *(_p(surface_lists[k]) for k in (*"xyz", "count")),
+                    *(_p(cave_lists[k]) for k in (*"xyz", "count")),
+                    None if rows is None else _p(rows), B, C, _p(s_out), _p(c_out))
     return s_out, c_out
 
 

@@ -68,12 +68,13 @@ SIGNATURES = {
     "mmt_fill": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     # hf, w, layers, starts, ends, bottom_biome, top_biome, pos, B, out surface_feature,
     # surface_y, surface_replace, cave_feature, cave_y, cave_height, cave_replace, stream
-    "mmt_placements": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "mmt_placements": [_P] * 8 + [_I] + [_P] * 8,
     # the 7 grids of mmt_placements, pos, B, out surface feature, x, y, z, replace, count,
     # out cave feature, x, y, z, replace, height, count, stream
     "mmt_compact_placements": [_P] * 8 + [_I] + [_P] * 13 + [_P],
-    # surface x, y, z, cave x, y, z, B, out surface streams, out cave streams, stream
-    "mmt_feature_streams": [_P] * 6 + [_I, _P, _P, _P],
+    # surface x, y, z, count, cave x, y, z, count, out rows (or null), B, out rows' count, out
+    # surface streams, out cave streams, stream
+    "mmt_feature_streams": [_P] * 9 + [_I, _I, _P, _P, _P],
     # blocks, surface feature, x, y, z, replace, count, streams, cave feature, x, y, z,
     # replace, height, count, streams, pos, ncx, ncz, scratch surface list, cave list, counts,
     # out blocks, stream
@@ -134,9 +135,9 @@ def ids_header() -> str:
     return "\n".join(lines) + "\n"
 
 
-def _c_array(name: str, a, ctype: str | None = None) -> str:
-    """A numpy array as a ``static __device__ const`` C array (f32 values are written
-    with enough digits to round back to the same f32)."""
+def _c_array(name: str, a, ctype: str | None = None, space: str = "__device__ const") -> str:
+    """A numpy array as a ``static __device__ const`` (or ``space``) C array (f32 values are
+    written with enough digits to round back to the same f32)."""
     a = np.asarray(a)
     if ctype is None:
         ctype = "float" if a.dtype.kind == "f" else "int"
@@ -147,13 +148,14 @@ def _c_array(name: str, a, ctype: str | None = None) -> str:
     else:
         vals = [str(int(v)) for v in a.reshape(-1)]
     dims = "".join(f"[{n}]" for n in a.shape)
-    return f"static __device__ const {ctype} {name}{dims} = {{{', '.join(vals)}}};"
+    return f"static {space} {ctype} {name}{dims} = {{{', '.join(vals)}}};"
 
 
 def feature_tables_header() -> str:
     """C tables of the feature half (K5-K8): feature ids, height bounds, the placement gen
     tables, seeds, caps, gather offsets, the application windows and the decorator gens,
     made from the same numpy tables and module constants the plain versions read."""
+    from ..ops import hashes
     from ..terrain import decorators, feature_placement as fp, features, features_sdf as sdf
     from ..world import features_data as fd
     from ..world.blocks import NUM_NON_SOLID_BLOCKS
@@ -193,6 +195,8 @@ def feature_tables_header() -> str:
     lines.append(_c_array("SURFACE_WINDOW", features.window_half_widths(cave=False)))
     lines.append(_c_array("CAVE_WINDOW", features.window_half_widths(cave=True)))
     lines.append(_c_array("DIR_VECS_2D", bio.DIR_VECS_2D))
+    # the stream pre-kernel's jumps: a^(j+1) mod m for draw j of a placement's stream
+    lines.append(_c_array("LCG_JUMP", hashes.lcg_pow_table(sdf.STREAM_LEN + 1)[1:], "uint32_t", "__constant__"))
     dec = tables.decorator_tables()
     lines.append(f"#define DEC_MAX_UNDER {dec['DEC_UNDER'].shape[1]}")
     lines.append(f"#define DEC_MAX_REPLACE {dec['DEC_REPLACE'].shape[1]}")

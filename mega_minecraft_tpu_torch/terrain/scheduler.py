@@ -11,10 +11,10 @@ queues, budget) runs in Python (``TerrainScheduler``) or in the native C++ core
 Each stage dispatch uploads its batch's slots and origins in one host-to-device copy and
 launches its kernels against the slot table, with no read-back: on CUDA the stages are
 K1 (heightfield), K2s (layers over a 3x3 slot table), K9 (zone erosion over a 24x24 slot
-table, in place), K3 (caves), K5 + K6 + K7's stream pre-kernel (placement lists and
-their streams), K4 + K7s + K8 (fill, per-chunk features over a 49-chunk slot table,
-decorators).  Whole per-chunk rows move between the slot table and a stage's batch with
-``index_select`` / ``index_copy_``.  Batches are as long as the plan makes them (no
+table, in place), K3 (caves), K5 + K6 + K7's stream pre-kernel (placement lists, and
+their streams written into the slot table in place), K4 + K7s + K8 (fill, per-chunk
+features over a 49-chunk slot table, decorators).  Whole per-chunk rows move between the
+slot table and a stage's batch with ``index_select`` / ``index_copy_``.  Batches are as long as the plan makes them (no
 padding to ``STAGE_BATCH``).  On the CPU the same dispatches run the plain versions.
 """
 
@@ -76,11 +76,11 @@ class TerrainState:
     ``device`` (the JAX dtypes: int16 cave starts / ends, uint8 cave biomes and blocks).
 
     Beside the JAX arrays it holds each chunk's true placement ``count`` (in ``d_sf`` /
-    ``d_cf``), and on CUDA the 64-draw stream of every list entry (``d_sstream``
-    [capacity, 256, 64], ``d_cstream`` [capacity, 1024, 64] f32), written once by the
-    placement stage and read by K7s; the plain path draws its streams itself, so on
-    other devices they are None.  A ``meta`` device allocates nothing: enough to drive
-    the host logic alone."""
+    ``d_cf``), and on CUDA the 64-draw stream of every valid list entry (``d_sstream``
+    [capacity, 256, 64], ``d_cstream`` [capacity, 1024, 64] f32; slot < min(count, K) of a
+    row, the entries K7s reads), written in place once by the placement stage; the plain path
+    draws its streams itself, so on other devices they are None.  A ``meta`` device
+    allocates nothing: enough to drive the host logic alone."""
 
     def __init__(self, capacity: int = 8192, *, device):
         c = self.capacity = capacity
@@ -187,8 +187,8 @@ def dispatch_caves(t, slots_np, pos_np):
 
 
 def dispatch_feature_placements(t, slots_np, pos_np):
-    sl, pos = t.upload(slots_np, pos_np)
-    sl = sl.long()
+    sl32, pos = t.upload(slots_np, pos_np)
+    sl = sl32.long()
     hf, w, ls = _rows(t, sl)
     cv = _cave_rows(t, sl, ("starts", "ends", "bottom", "top"))
     lists = fp.compact_placements(fp.generate_placements(hf, w, ls, *cv, pos), pos)
@@ -196,10 +196,8 @@ def dispatch_feature_placements(t, slots_np, pos_np):
         v.index_copy_(0, sl, lists["surface"][k])
     for k, v in t.d_cf.items():
         v.index_copy_(0, sl, lists["cave"][k])
-    if t.d_sstream is not None:
-        s_streams, c_streams = kernels.feature_streams(lists["surface"], lists["cave"])
-        t.d_sstream.index_copy_(0, sl, s_streams)
-        t.d_cstream.index_copy_(0, sl, c_streams)
+    if t.d_sstream is not None:  # the valid rows' streams, straight into the batch's slots
+        kernels.feature_streams(lists["surface"], lists["cave"], out=(t.d_sstream, t.d_cstream), rows=sl32)
 
 
 def dispatch_fill(t, slots_np, pos_np, nbslots_np):

@@ -7,7 +7,9 @@ its direct path, bit for bit against the plain version (cave arrays and carve ba
 the golden chunks and two far ones; K4 with its lush-cave cell table and with every tile on
 its direct path, bit for bit against the plain version at golden and far chunks that hold
 lush blocks (one past |x| = 671,088,640); K7 and K7s (also without its cull) on synthetic lists that overflow K and the gather cap, bit for bit against
-the plain versions, their pre-pass lists too; and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
+the plain versions, their pre-pass lists too; K5 on a batch read from a slot table (int16 / uint8 cave
+rows); K7's stream pre-kernel into NaN-filled slot rows through ``out=`` / ``rows`` (the valid
+rows equal the plain streams, the others stay NaN) feeding K7s; and a radius-8 streaming drain (K1, K2s, K3, K5, K6,
 K7's pre-kernel, K4, K7s, K8) whose filled chunks must equal the featured area path
 over all their sources.  The render path: K10 (scene fields, bit for bit), K11t (the
 DDA of 1080p-camera primary rays: hit, block, normal and t equal), K11 (a 64x64 tile of
@@ -323,6 +325,58 @@ def test_features_kernels_synthetic_lists_match_plain_on_gpu(cuda_device, overfl
             assert torch.equal(k_len.cpu(), p_len)
             keep = torch.arange(p_lists.shape[1])[None, :] < p_len[:, None]
             assert torch.equal(k_lists.cpu()[keep][:, :7], p_lists[keep][:, :7])
+
+
+@pytest.mark.cuda
+def test_placements_kernel_on_a_slot_table_batch_matches_plain_on_gpu(cuda_device):
+    """K5 on a batch read from a slot table as the drain reads it (the cave rows stored int16 /
+    uint8, converted to int32), bit for bit against the plain version."""
+    pos = pipeline.chunk_positions(-1, -1, 4, 3, device=cuda_device)
+    st = layers.layers_from_halo_plain(*heightfield.generate_heightfield_plain(pos), pos, 2, 1)
+    cv = caves.generate_caves_plain(st["heightfield"], st["biome_weights"], st["chunk_pos"])
+    t = scheduler.TerrainState(8, device=cuda_device)
+    rows = torch.tensor([5, 2], device=cuda_device)
+    t.d_heightfield[rows], t.d_weights[rows], t.d_layers[rows] = st["heightfield"], st["biome_weights"], st["layers"]
+    for name, key, dtype in (("starts", "starts", torch.int16), ("ends", "ends", torch.int16),
+                             ("bottom", "bottom_biome", torch.uint8), ("top", "top_biome", torch.uint8)):
+        getattr(t, f"d_cave_{name}")[rows] = cv[key].to(dtype)
+    args = (*scheduler._rows(t, rows), *scheduler._cave_rows(t, rows, ("starts", "ends", "bottom", "top")),
+            st["chunk_pos"])
+    want = feature_placement.generate_placements_plain(*args)
+    assert int((want["cave_feature"] > 0).sum()) + int((want["surface_feature"] > 0).sum()) > 0
+    got = kernels.placements(*args)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overflow", [False, True], ids=["free", "overflow"])
+def test_feature_streams_into_slot_rows_feed_k7s_on_gpu(cuda_device, overflow):
+    """K7a with ``out=`` / ``rows`` into NaN-filled slot tables: the valid rows equal the plain
+    streams, the others stay NaN, and K7s on those tables equals its plain version."""
+    from test_torch_feature_cull import _overflowing, _slot_table, _strip
+
+    blocks, lists, pos = _strip()
+    if overflow:
+        lists = _overflowing(lists)
+    table, nslots = _slot_table(lists, 3, 1)  # row b = chunk b, row 3 empty
+    to = lambda d: {k: v.to(cuda_device) for k, v in d.items()}  # noqa: E731
+    table_d = {k: to(d) for k, d in table.items()}
+    out = tuple(torch.full((4, K, 64), float("nan"), device=cuda_device) for K in (256, 1024))
+    # the batch in another order than the table's rows
+    order = torch.tensor([2, 0, 1], device=cuda_device)
+    batch = {k: {f: v[order] for f, v in d.items()} for k, d in table_d.items()}
+    kernels.feature_streams(batch["surface"], batch["cave"], out=out, rows=order.to(torch.int32))
+    want = features.draw_streams_plain(table["surface"], table["cave"])
+    for (kind, K), got, w in zip((("surface", 256), ("cave", 1024)), out, want):
+        valid = torch.arange(K)[None, :] < torch.clamp(table[kind]["count"], max=K)[:, None]
+        assert bool(valid.any())
+        assert torch.equal(got.cpu()[valid], w[valid])
+        assert bool(torch.isnan(got.cpu()[~valid]).all())
+    got = kernels.features_slots(blocks.to(cuda_device), table_d["surface"], table_d["cave"], *out,
+                                 nslots.to(cuda_device), pos.to(cuda_device))
+    assert torch.equal(got.cpu(), features.apply_features_slots_plain(blocks, table["surface"], table["cave"],
+                                                                      nslots, pos))
 
 
 @pytest.mark.cuda

@@ -214,6 +214,25 @@ def test_stage_on_unsupported_device_raises():
         heightfield.generate_heightfield(pos)
 
 
+def _misaligned_placement_inputs():
+    """K5's inputs for one chunk, the cave starts 4 bytes off a 16-byte boundary."""
+    cave = [torch.zeros((1, 16, 16, 32), dtype=torch.int32) for _ in range(4)]
+    cave[0] = torch.zeros(16 * 16 * 32 + 1, dtype=torch.int32)[1:].view(1, 16, 16, 32)
+    return (torch.zeros((1, 16, 16)), torch.zeros((1, 24, 16, 16)), torch.zeros((1, 20, 16, 16)), *cave,
+            torch.zeros((1, 2), dtype=torch.int32))
+
+
+def _stream_lists(B):
+    """K7a's input lists (x, y, z, count) of B chunks."""
+    return tuple({**{k: torch.zeros((B, K), dtype=torch.int32) for k in "xyz"},
+                  "count": torch.zeros(B, dtype=torch.int32)} for K in (256, 1024))
+
+
+def _stream_rows(C):
+    """K7a's outputs of C rows."""
+    return torch.zeros((C, 256, 64)), torch.zeros((C, 1024, 64))
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -245,9 +264,17 @@ def test_stage_on_unsupported_device_raises():
                              torch.zeros((1, 16, 16, 32), dtype=torch.int32),
                              torch.zeros((1, 2), dtype=torch.int32), tables.LUSH_TABLE_CELLS,
                              torch.zeros(3, dtype=torch.int32)),
+        lambda: kernels.placements(*_misaligned_placement_inputs()),
+        lambda: kernels.feature_streams(*_stream_lists(2), rows=torch.zeros(2, dtype=torch.int32)),
+        lambda: kernels.feature_streams(*_stream_lists(2), out=_stream_rows(3)),
+        lambda: kernels.feature_streams(*_stream_lists(2), out=_stream_rows(3), rows=torch.zeros(2)),
+        lambda: kernels.feature_streams(*_stream_lists(2), out=_stream_rows(3)[::-1],
+                                        rows=torch.zeros(2, dtype=torch.int32)),
     ],
     ids=["dtype", "shape", "batch", "contiguity", "halo-shape", "dp-layers-dtype", "erosion-band-shape",
-         "caves-table-cells", "caves-table-too-large", "fill-table-too-large", "fill-stats-shape"],
+         "caves-table-cells", "caves-table-too-large", "fill-table-too-large", "fill-stats-shape",
+         "placements-misaligned", "streams-rows-without-out", "streams-out-needs-rows",
+         "streams-rows-dtype", "streams-out-shape"],
 )
 def test_kernel_wrappers_validate_before_launch(call):
     before = kernels.launch_counts()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K4 (chunk fill), K7 (area feature application) and K7s (the scheduler's per-chunk
-feature application) of two or more checkouts of the port, in turns, on one GPU.
+"""Time K4 (chunk fill), K5 (feature placement), K7a (the per-placement stream pre-kernel),
+K7 (area feature application) and K7s (the scheduler's per-chunk feature application) of two
+or more checkouts of the port, in turns, on one GPU.
 
 Usage (on a machine with a CUDA GPU), e.g. a parent commit unpacked under build/:
 
@@ -8,11 +9,15 @@ Usage (on a machine with a CUDA GPU), e.g. a parent commit unpacked under build/
 
 Each root runs in its own process, in the order given, and builds its own kernels (into
 ROOT/build/mmt_kernels; the first build of a root prints ptxas's registers and spills of
-the K4 and K7 kernels).  A run prints the card's name and power limit, then one JSON line:
-at the 5x5 and 33x33 areas of chip_smoke.py (chunk (0, 0) and (-16, -16)), K4 and K7 a call
-(CUDA events, warm) and on the device (torch.profiler, the mean span of each kernel's
-launches), the featured slice (generate_area_fused(..., features=True)), and K7s on 16
-chunks (4 x 4 in the middle of the 33x33 area, their 49 sources' lists as a slot table).
+the kernels timed here).  A run prints the card's name and power limit, then one JSON line:
+at the 5x5 and 33x33 areas of chip_smoke.py (chunk (0, 0) and (-16, -16)), each a call (CUDA
+events, warm) and on the device (torch.profiler, the mean span of each kernel's launches):
+K4, K5, K7a into its own outputs (the area path) and into a slot table (the drain's
+destination: 16 chunks, the 4 x 4 in the middle of the area, into a table of the area's
+rows; where the root's K7a has no ``out=``, its rows and the two ``index_copy_`` the drain
+made, the copies' device time under ``all``), K7, the featured slice
+(generate_area_fused(..., features=True)), and K7s on those 16 chunks (their 49 sources'
+lists as a slot table).  A root's first build also prints its kernels' SASS sizes.
 """
 
 from __future__ import annotations
@@ -23,11 +28,13 @@ import inspect
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
-KERNEL_NAMES = ("fill_kernel", "features_kernel", "features_slots_kernel", "cull_kernel")
+KERNEL_NAMES = ("fill_kernel", "placements_kernel", "feature_streams_kernel", "features_kernel",
+                "features_slots_kernel", "cull_kernel")
 
 
 def cuda_ms(torch, fn, reps):
@@ -43,20 +50,44 @@ def cuda_ms(torch, fn, reps):
 
 
 def device_ms(torch, fn, reps):
-    """{kernel name: ms a call}: each kernel that ``fn`` launches once a call, its mean span."""
+    """{kernel name: ms a call}: each kernel of KERNEL_NAMES that ``fn`` launches once a call,
+    its mean span; ``all``: every device span a call (copies included)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = {}
+    spans, every = {}, {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
+            every.setdefault(ev.name, []).append(ev.time_range.end - ev.time_range.start)
             name = next((k for k in KERNEL_NAMES if re.search(rf"\b{k}\b", ev.name)), None)
             if name is not None:
                 spans.setdefault(name, []).append(ev.time_range.end - ev.time_range.start)
-    return {k: sum(v) / len(v) / 1e3 for k, v in spans.items()}
+    # every kernel's mean span times its launches a call (the profiler may drop a trace's first ones)
+    total = sum(sum(v) / len(v) * max(1, round(len(v) / reps)) for v in every.values())
+    return {**{k: sum(v) / len(v) / 1e3 for k, v in spans.items()}, "all": total / 1e3}
+
+
+def sass_sizes(lib) -> dict:
+    """{kernel: SASS instructions} of the library's kernels in KERNEL_NAMES (cuobjdump), or {} where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    sizes, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((k for k in KERNEL_NAMES if re.search(rf"\d{k}", fn)), None)
+            if name:
+                sizes[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            sizes[name] += 1
+    return sizes
 
 
 def worker(root: str, reps: int) -> None:
@@ -72,14 +103,16 @@ def worker(root: str, reps: int) -> None:
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         _, build_s, built = _build.build(verbose=True)
-    if built:  # ptxas's lines for the kernels of K4 and K7
+    if built:  # ptxas's lines for the kernels timed here, and their SASS instructions
         lines = log.getvalue().splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(k in line for k in KERNEL_NAMES):
                 print(line.split("'")[1], "|", lines[i + 2].strip(), "|", lines[i + 3].strip())
+        print("SASS instructions:", sass_sizes(_build.BUILD_DIR / _build.LIB_NAME))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     table = (tables.LUSH_TABLE_CELLS,) if "table_cells" in inspect.signature(kernels.fill).parameters else ()
+    in_place = "out" in inspect.signature(kernels.feature_streams).parameters
     out = {"root": root, "card": smi, "build_s": round(build_s, 1)}
     for n, first in ((5, -1), (33, -17)):  # the areas' first halo chunk, as chip_smoke.py's
         pos = pipeline.chunk_positions(first, first, n + 2, n + 2, device=dev)
@@ -88,10 +121,13 @@ def worker(root: str, reps: int) -> None:
         cv = kernels.caves(st["heightfield"], st["biome_weights"], st["chunk_pos"], caves.CELL_TABLE_CAP)
         args4 = (st["heightfield"], st["biome_weights"], st["layers"], cv["starts"], cv["ends"], st["chunk_pos"])
         base = kernels.fill(*args4, *table)
-        grids = kernels.placements(*args4[:5], cv["bottom_biome"], cv["top_biome"], st["chunk_pos"])
+        args5 = (*args4[:5], cv["bottom_biome"], cv["top_biome"], st["chunk_pos"])
+        grids = kernels.placements(*args5)
         lists = kernels.compact_placements(grids, st["chunk_pos"])
         streams = kernels.feature_streams(lists["surface"], lists["cave"])
         calls = {"fill": lambda: kernels.fill(*args4, *table),
+                 "placements": lambda: kernels.placements(*args5),
+                 "feature_streams": lambda: kernels.feature_streams(lists["surface"], lists["cave"]),
                  "features": lambda: kernels.features(base, lists["surface"], lists["cave"], *streams,
                                                       st["chunk_pos"], n, n)}
         if n == 33:  # K7s on the middle 4 x 4 chunks, the area's lists as the slot table
@@ -102,6 +138,18 @@ def worker(root: str, reps: int) -> None:
             blocks16, pos16 = base[rows].contiguous(), st["chunk_pos"][rows].contiguous()
             calls["features_slots"] = lambda: kernels.features_slots(
                 blocks16, lists["surface"], lists["cave"], *streams, nslots, pos16)
+            # K7a's drain destination: the 16 chunks' lists into the slot table's rows
+            sub = {kind: {k: v[rows].contiguous() for k, v in d.items()} for kind, d in lists.items()}
+            slot_table = tuple(torch.zeros_like(v) for v in streams)
+            rows32 = rows.to(torch.int32)
+
+            def drain_streams():
+                if in_place:
+                    kernels.feature_streams(sub["surface"], sub["cave"], out=slot_table, rows=rows32)
+                else:
+                    for dst, src in zip(slot_table, kernels.feature_streams(sub["surface"], sub["cave"])):
+                        dst.index_copy_(0, rows, src)
+            calls["feature_streams_drain"] = drain_streams
         for name, fn in calls.items():
             out[f"{name}_{n}_ms"] = cuda_ms(torch, fn, reps if n == 5 else max(3, reps // 5))
             out[f"{name}_{n}_dev"] = device_ms(torch, fn, reps if n == 5 else max(3, reps // 5))
