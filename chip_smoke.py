@@ -71,7 +71,9 @@ Phases, each of which raises (non-zero exit) on failure:
      featured 5x5 areas tiled as tools/scenelib.py tiles them) (K10), ``tracer.trace`` of
      its 1080p primary rays (K11t), one ``render_sample`` + ``accumulate`` and eight
      ``render_accumulate`` (K11, K12); K10 against its plain version bit for bit on that
-     scene and on the 33x33 featured area at chunk (-16, -16);
+     scene, on a 36x20x384 cut of it (dims that are multiples of 4 but not of the prep's
+     4x4-column groups' 16) and on the 33x33 featured area at chunk (-16, -16), its device
+     launches a call (``kernels.scene_launches()``) at most 20;
  11. K11t on the 1080p primary rays (every output equal); K11 on the whole 1080p frame 3
      of both scenes by day (sun_time 1.0), and of the 10x10 scene at night (sun_time 4.0,
      sun below the horizon) and with ``exact=True`` (counts equal; >= 99.9% of pixels
@@ -85,7 +87,8 @@ Phases, each of which raises (non-zero exit) on failure:
      per pixel (primary, bounce, shadow rays; mean, p99, max) from K11's counts output;
  13. the engine's frame kernels against their plain versions, bit for bit: K10u
      (``brickmap.update_chunks``) on the featured 33x33 scene (a 3x3 bucket rewritten with
-     one chunk air, a bucket removed, the corner bucket with its window clamped), K13 and
+     one chunk air, a bucket removed, the corner bucket with its window clamped; its device
+     launches a call at most 20), K13 and
      K13s after a moved and a static camera at 960x540, K14 with and without nsamp, K15 to
      1920x1080 (also within 1e-6 of ``F.interpolate``) and at 1x1, 5x3 and 9x7, K16 at
      1920x1080; each timed (plain, kernel, kernel, plain) with its bound, K15's library
@@ -97,7 +100,9 @@ Phases, each of which raises (non-zero exit) on failure:
      each) and one present (one K14, K15, K16), timed; the presented [1080, 1920, 3] u8
      frame equal to the plain denoise -> upscale -> present chain on the same buffers; the
      same run on a second engine under torch.profiler for the idle share and the device
-     time by stage;
+     time by stage, its upload's buckets recorded and replayed through
+     ``update_chunks_plain`` from the empty scene: the scene after the whole upload equal
+     bit for bit;
  15. K17 (``render_debug``) with the counts reset around one call (one K17 launch, nothing
      else), then against ``render_debug_plain`` bit for bit at 1920x1080, DDA step counts
      equal, on phase 10's 10x10 scene and camera and on the featured 33x33 scene (day
@@ -160,9 +165,8 @@ K11t and K11 the rays' or frame's inputs and outputs plus the field words their 
 read (at most the field), and the steps this frame's rays took (K11's counts output) times
 the cost of a step, plus a bounce's shading per radiance ray and the cloud march per
 first-hit ray that looks up; K12 three buffers read twice and written once; K10u the
-window's words read and written, the region's blocks, the whole fine field read and the
-macro words written by the macro pass, and K10's operations per window voxel and macro
-cell; K13 / K13s 32 floats a pixel (history and sample read, new history written); K14
+window's words read and written, the region's blocks, the old macro words read and the
+new ones written, and K10's operations per window voxel and macro cell; K13 / K13s 32 floats a pixel (history and sample read, new history written); K14
 its colour read and written per iteration and the guides once, and ~45 operations per tap
 (25 taps, 4 iterations); K15 and K16 their input and output once; K17 its frame written
 once and the field words its DDA steps read, and 140 operations per DDA step taken (the
@@ -1371,6 +1375,11 @@ def bench_blocks(dev):
     return torch.cat(rows, dim=0), hmax
 
 
+#: K10's and K10u's launches a call by kernel (device_ms)
+K10_LAUNCHES = {"scene_prep_kernel": 1, "scene_round_kernel": 5, "scene_encode_kernel": 1}
+K10U_LAUNCHES = {"update_prep_kernel": 1, "scene_round_kernel": 5, "scene_encode_kernel": 1}
+
+
 def k10_counts(vol, flat):
     n = vol.numel()
     return vol.numel() + flat.numel() * 4, n * K10_VOXEL_OPS * 65 / 64
@@ -1497,6 +1506,7 @@ def render_phases(dev, stamp, err, smi):
         fbs = tracer.render_accumulate(fbs, scene10, cam, day, H, W, fid)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    scene_launches = {"scene_fields": kernels.scene_launches()}  # the run's one K10 call
     want = {"scene_fields": 1, "trace": 1, "render_sample": RENDER_FRAMES + 1,
             "accumulate": RENDER_FRAMES + 1}
     print(f"  launch counts of the render main path: {launches}")
@@ -1517,6 +1527,12 @@ def render_phases(dev, stamp, err, smi):
     plain10 = brickmap.build_fields_plain(vol10)
     err["scene_fields"] = check_equal("K10 10x10 flat (fine ++ macro)", scene10.flat, plain10)
     del plain10
+    print(f"  K10's device launches a call: {scene_launches['scene_fields']}")
+    check(scene_launches["scene_fields"] <= 20, "K10 makes more than 20 launches a call")
+    # a cut whose dims are multiples of 4 but not of the prep's 4x4-column groups' 16
+    cut = vol10[60:96, 70:90].contiguous()
+    err["scene_fields"] = max(err["scene_fields"], check_equal(
+        "K10 36x20x384 cut of the 10x10 scene", kernels.scene_fields(cut), brickmap.build_fields_plain(cut)))
     area33 = pipeline.generate_area(-16, -16, 33, 33, features=True, device=dev)
     blocks33 = area33["blocks"]
     del area33
@@ -1586,8 +1602,9 @@ def render_phases(dev, stamp, err, smi):
         k10_ms = cuda_ms(lambda: kernels.scene_fields(vol), 3)
         times[("scene_fields", tag)] = k10_ms
         bounds[("scene_fields", tag)] = bound(*k10_counts(vol, scene.flat))
-        print(f"  K10 {tag} on {smi}: {k10_ms:.3f} ms, bound {bounds[('scene_fields', tag)][0]:.4g} ms "
-              f"by {bounds[('scene_fields', tag)][1]}")
+        k10_dev = fmt_ms(device_ms(lambda: kernels.scene_fields(vol), K10_LAUNCHES, 5))
+        print(f"  K10 {tag} on {smi}: {k10_ms:.3f} ms (device {k10_dev}), bound "
+              f"{bounds[('scene_fields', tag)][0]:.4g} ms by {bounds[('scene_fields', tag)][1]}")
     p10 = cuda_ms(lambda: brickmap.build_fields_plain(vol10), 1)
     k11t = cuda_ms(lambda: tracer.trace(scene10, *rays, med), 5)
     p11t = cuda_ms(lambda: tracer.trace_plain(scene10, *rays, med), 1)
@@ -1626,9 +1643,7 @@ def render_phases(dev, stamp, err, smi):
 ATROUS_TAP_OPS = 45
 FLY_FRAMES = 30  # ticks of the timed fly-through, as bench_flythrough.py times them
 #: device kernels of the fly-through by stage, for the profiler's split
-STAGE_OF_KERNEL = (("window_kernel", "K10u"), ("macro_solid_kernel", "K10u"), ("top_kernel", "K10u"),
-                   ("sky_kernel", "K10u"), ("init_kernel", "K10u"), ("shift_min_kernel", "K10u"),
-                   ("round_update_kernel", "K10u"), ("encode_kernel", "K10u"),
+STAGE_OF_KERNEL = (("update_prep_kernel", "K10u"), ("scene_round_kernel", "K10u"), ("scene_encode_kernel", "K10u"),
                    ("render_sample_kernel", "K11"), ("reproject_kernel", "K13"),
                    ("static_blend_kernel", "K13"), ("atrous_kernel", "present"),
                    ("upscale2x_kernel", "present"), ("present_kernel", "present"))
@@ -1636,11 +1651,13 @@ STAGE_OF_KERNEL = (("window_kernel", "K10u"), ("macro_solid_kernel", "K10u"), ("
 
 def k10u_counts(dims, gz, gx, n_w):
     """(bytes, operations) of one K10u: the window's words read and written, the region's
-    blocks read, the whole fine field read and the macro words written by the macro pass;
-    K10's operations per window voxel and per macro cell."""
+    blocks read, the old macro words read (their solidity outside the region) and the new
+    ones written; K10's operations per window voxel and per macro cell.  The solidity of
+    the macro cells outside the region is the old macro words', not a read of the whole fine
+    field: the scene's macro level is the one computed from its fine level."""
     z, x, y = dims
-    n_fine, n_m = z * x * y, z * x * y // 64
-    return 8 * n_w + gz * gx * 16 * 16 * y + 4 * n_fine + 4 * n_m, (n_w + n_m) * K10_VOXEL_OPS
+    n_m = z * x * y // 64
+    return 8 * n_w + gz * gx * 16 * 16 * y + 8 * n_m, (n_w + n_m) * K10_VOXEL_OPS
 
 
 def frame_kernel_phase(dev, stamp, err, smi):
@@ -1678,6 +1695,9 @@ def frame_kernel_phase(dev, stamp, err, smi):
         e10u = max(e10u, check_equal(f"K10u {tag} ({moved} words changed)", scene.flat, want))
         check(moved > 10000, f"K10u {tag}: the update changed {moved} words")
     err["update_chunks"] = e10u
+    n_launch = kernels.scene_launches()
+    print(f"  K10u's device launches a call: {n_launch}")
+    check(n_launch <= 20, "K10u makes more than 20 launches a call")
     slots = [(2 * 3 + dz) * 33 + 7 * 3 + dx for dz in range(3) for dx in range(3)]
     args = (slot_table, slots, [True] * 9, 3, 3, 4 * 48, 5 * 48)
     k_ms = cuda_ms(lambda: brickmap.update_chunks(scene, *args), 10)
@@ -1685,8 +1705,9 @@ def frame_kernel_phase(dev, stamp, err, smi):
     zlo, xlo, wz, wx = brickmap.update_window(scene.dims, 3, 3, 4 * 48, 5 * 48)
     times["update_chunks"] = (k_ms, p_ms)
     bounds["update_chunks"] = bound(*k10u_counts(scene.dims, 3, 3, wz * wx * 384))
-    print(f"  K10u on {smi}: {k_ms:.4f} ms a 3x3 bucket ({wz}x{wx}x384 window), plain {p_ms:.3f} ms, bound "
-          f"{bounds['update_chunks'][0]:.4g} ms by {bounds['update_chunks'][1]}")
+    k_dev = fmt_ms(device_ms(lambda: brickmap.update_chunks(scene, *args), K10U_LAUNCHES, 10))
+    print(f"  K10u on {smi}: {k_ms:.4f} ms a 3x3 bucket ({wz}x{wx}x384 window; device {k_dev}), plain "
+          f"{p_ms:.3f} ms, bound {bounds['update_chunks'][0]:.4g} ms by {bounds['update_chunks'][1]}")
 
     h, w = 540, 960
     player = camera.Player(pos=np.array([0.0, hmax + 16.0, -60.0], np.float32), theta=0.05, phi=-0.22)
@@ -1776,7 +1797,7 @@ def flythrough_phase(dev, stamp, smi):
     counts of the upload, the 30 ticks and the present, and the second engine (phase 16)."""
     from mega_minecraft_tpu_torch import kernels
     from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
-    from mega_minecraft_tpu_torch.render import denoise, tonemap
+    from mega_minecraft_tpu_torch.render import brickmap, denoise, tonemap
 
     stamp("phase 14: the reference fly-through: Engine(1920x1080, upscaled from 960x540, view_chunks=33, "
           "gen_radius=None, erosion, denoise, reprojection)")
@@ -1841,10 +1862,29 @@ def flythrough_phase(dev, stamp, smi):
     eng.scheduler.tick = tick
     del eng
     torch.cuda.empty_cache()
-    # the same 30 frames of a second engine, traced: the drain and the upload untraced
+    # the same 30 frames of a second engine, traced: the drain and the upload untraced; the
+    # upload's buckets recorded and replayed through the plain version from the empty scene
     eng = Engine(cfg)
     eng.scheduler.drain()
-    eng._upload_new_chunks()
+    calls, update = [], brickmap.update_chunks
+
+    def recorded(scene, *args):
+        calls.append(args)
+        return update(scene, *args)
+
+    brickmap.update_chunks = recorded
+    try:
+        eng._upload_new_chunks()
+    finally:
+        brickmap.update_chunks = update
+    replay = brickmap.empty_scene(eng.scene.dims[0], *eng.window_origin, device=eng.device)
+    for args in calls:
+        replay.flat.copy_(brickmap.update_chunks_plain(replay, *args))
+    n_diff = int((replay.flat != eng.scene.flat).sum())
+    print(f"  a second engine's upload ({len(calls)} K10u buckets) replayed through update_chunks_plain from "
+          f"the empty scene: {n_diff} of {replay.flat.numel()} words differ")
+    check(len(calls) == 121 and n_diff == 0, "the uploaded scene differs from the plain replay of its buckets")
+    del replay
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:

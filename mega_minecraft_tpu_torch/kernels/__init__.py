@@ -543,43 +543,72 @@ def _alpha_tables(dev, flags: bytes, frac: bytes) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
+def _scene_dims(Z: int, X: int, Y: int) -> None:
+    if Z % 4 or X % 4 or Y % 16 or Y > 512:
+        raise ValueError(f"scene dims {(Z, X, Y)}: Z and X must be multiples of 4, Y of 16 and at most 512")
+
+
+def _aligned(t: torch.Tensor, name: str, to: int) -> None:
+    if t.data_ptr() % to:
+        raise ValueError(f"{name}: data not aligned to {to} bytes")
+
+
 def scene_fields(vol):
-    """K10: [Z, X, 384] u8 block ids (Z, X multiples of 4) -> flat i32 fine ++ macro words
-    (one count per call; the entry point makes 56 launches).  The alpha-flag and
-    transparent-fraction tables are read from ``render.brickmap`` at each call, as the
-    plain version reads them, and copied to the card once per content."""
+    """K10: [Z, X, Y] u8 block ids (Z, X multiples of 4, Y of 16 and at most 512) -> flat
+    i32 fine ++ macro words (one count per call; the entry point makes 7 launches,
+    ``scene_launches()``).  The alpha-flag and transparent-fraction tables are read from
+    ``render.brickmap`` at each call, as the plain version reads them, and copied to the
+    card once per content.  Scratch: two state buffers, 8 bytes a voxel of each level."""
     from ..render import brickmap
 
     dev = vol.device
     Z, X, Y = vol.shape
     _check(vol, "vol", torch.uint8, (Z, X, Y), dev)
-    if Z % 4 or X % 4 or Y % 4:
-        raise ValueError(f"vol: dims {tuple(vol.shape)} must be multiples of 4")
+    _scene_dims(Z, X, Y)
+    if vol.data_ptr() % 16:  # the kernels read four ids a load
+        vol = vol.clone()
     n = Z * X * Y
     flat = torch.empty((n + n // 64,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((3, n), dtype=torch.int32, device=dev)
-    mask = torch.empty((n,), dtype=torch.uint8, device=dev)
-    cols = torch.empty((2, Z * X), dtype=torch.int32, device=dev)
+    state = torch.empty((2 * (n + n // 64),), dtype=torch.int32, device=dev)
+    cols = torch.empty((2 * (Z * X + Z * X // 16),), dtype=torch.int32, device=dev)
     alpha = _alpha_tables(dev, np.asarray(brickmap.ALPHA_TESTED, np.uint8).tobytes(),
                           np.asarray(brickmap.ALPHA_T_FRAC, np.uint8).tobytes())
     if n:
         with torch.cuda.device(dev):
             _launch("scene_fields", _build.load().mmt_scene_fields, _p(vol), _p(alpha), Z, X, Y, _p(flat),
-                    _p(scratch[0]), _p(scratch[1]), _p(mask), _p(cols[0]), _p(cols[1]))
+                    _p(state), _p(cols))
     return flat
+
+
+def scene_launches() -> int:
+    """The kernel launches that the last K10 or K10u call made on the card."""
+    return int(_build.load().mmt_scene_launches())
 
 
 def update_chunks(scene, d_blocks, slots, mask, gz: int, gx: int, z0: int, x0: int) -> None:
     """K10u: the gz x gx chunks ``slots`` (host ints, row-major; air where ``mask`` is
     false) of the slot table ``d_blocks`` [C, 16, 16, 384] u8 written into ``scene`` at
-    volume offset (z0, x0), its window re-swept and its macro level recomputed, in place.
-    The slots go to the kernel by value: nothing is copied to the card."""
+    volume offset (z0, x0) (multiples of 4), its window re-swept and its macro level
+    recomputed, in place (7 launches, one count).  The slots go to the kernel by value:
+    nothing is copied to the card.
+
+    Precondition: the scene's macro level is the one computed from its fine level, as
+    every writer of a scene leaves it (``empty_scene``, ``build_scene``, ``update_chunks``,
+    ``tables.scene_from_numpy`` of a JAX ``Scene``).  The kernel takes a macro cell's
+    solidity outside the region from its old macro word (low byte 0: solid) and reads the
+    fine level only in the window; the plain version recomputes it from the whole fine
+    level, so the two agree exactly under this precondition."""
     from ..render import brickmap
 
     dev = scene.flat.device
     Z, X, Y = scene.dims
     _check(scene.flat, "scene.flat", torch.int32, (Z * X * Y + Z * X * Y // 64,), dev)
     _check(d_blocks, "d_blocks", torch.uint8, (d_blocks.shape[0], 16, 16, Y), dev)
+    _scene_dims(Z, X, Y)
+    _aligned(scene.flat, "scene.flat", 16)
+    _aligned(d_blocks, "d_blocks", 4)
+    if z0 % 4 or x0 % 4:
+        raise ValueError(f"region offset ({z0}, {x0}): must be multiples of 4 (whole macro cells)")
     n_reg = gz * gx
     if n_reg > brickmap.MAX_REGION_CHUNKS:
         raise ValueError(f"region of {n_reg} chunks: at most {brickmap.MAX_REGION_CHUNKS}")
@@ -588,17 +617,14 @@ def update_chunks(scene, d_blocks, slots, mask, gz: int, gx: int, z0: int, x0: i
         raise ValueError(f"slots {slots.tolist()} outside the slot table of {d_blocks.shape[0]}")
     zlo, xlo, wz, wx = brickmap.update_window(scene.dims, gz, gx, z0, x0)
     n_w, n_m = wz * wx * Y, Z * X * Y // 64
-    n_s = max(n_w, n_m)
-    ints = torch.empty((3 * n_s + 2 * max(wz * wx, Z * X // 16),), dtype=torch.int32, device=dev)
-    bytes_ = torch.empty((2 * n_s + n_w,), dtype=torch.uint8, device=dev)
-    cols = ints[3 * n_s:]
+    state = torch.empty((2 * (n_w + n_m),), dtype=torch.int32, device=dev)
+    cols = torch.empty((2 * (wz * wx + Z * X // 16),), dtype=torch.int32, device=dev)
     alpha = _alpha_tables(dev, np.asarray(brickmap.ALPHA_TESTED, np.uint8).tobytes(),
                           np.asarray(brickmap.ALPHA_T_FRAC, np.uint8).tobytes())
     c_slots = (ctypes.c_int * max(n_reg, 1))(*np.where(mask, slots, -1).tolist())
     with torch.cuda.device(dev):
         _launch("update_chunks", _build.load().mmt_update_chunks, _p(scene.flat), _p(d_blocks), c_slots,
-                gz, gx, z0, x0, zlo, xlo, wz, wx, _p(alpha), Z, X, Y, _p(bytes_), _p(bytes_[n_s:]),
-                _p(ints), _p(ints[n_s:]), _p(bytes_[2 * n_s:]), _p(cols), _p(cols[cols.numel() // 2:]))
+                gz, gx, z0, x0, zlo, xlo, wz, wx, _p(alpha), Z, X, Y, _p(state), _p(cols))
 
 
 class _SceneArgs(ctypes.Structure):

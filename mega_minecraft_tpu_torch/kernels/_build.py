@@ -84,11 +84,13 @@ SIGNATURES = {
     "mmt_features_slots": [_P] * 18 + [_I, _I] + [_P] * 5,
     # blocks, hf, w, starts, ends, bottom_biome, pos, B, out blocks, stream
     "mmt_decorators": [_P] * 7 + [_I, _P, _P],
-    # vol, alpha tables, Z, X, Y, out flat, scratch a, b, mask, top, sky, stream
-    "mmt_scene_fields": [_P, _P, _I, _I, _I] + [_P] * 7,
+    # vol, alpha tables, Z, X, Y, out flat, scratch state, cols, stream
+    "mmt_scene_fields": [_P, _P, _I, _I, _I] + [_P] * 4,
     # flat (in/out), d_blocks, host slots, gz, gx, z0, x0, zlo, xlo, wz, wx, alpha tables, Z,
-    # X, Y, scratch wvol, wmask, a, b, qseed, top, sky, stream
-    "mmt_update_chunks": [_P, _P, _P] + [_I] * 8 + [_P] + [_I] * 3 + [_P] * 8,
+    # X, Y, scratch state, cols, stream
+    "mmt_update_chunks": [_P, _P, _P] + [_I] * 8 + [_P] + [_I] * 3 + [_P] * 3,
+    # (no arguments): the kernel launches of the last K10 / K10u call
+    "mmt_scene_launches": [],
     # &TraceArgs, stream
     "mmt_trace": [_P, _P],
     # &RenderArgs, stream

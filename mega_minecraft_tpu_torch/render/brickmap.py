@@ -285,7 +285,9 @@ def update_chunks(scene: Scene, d_blocks, slots, mask, gz: int, gx: int, z0: int
     volume offset (z0, x0), air where ``mask`` is false, and re-sweep the distance fields
     over the window around them; the macro field is recomputed whole.  The analogue of
     buildChunkAccel / destroyChunk.  The scene's buffer is updated in place and returned
-    in a new Scene.  CUDA: K10u; CPU: the plain version."""
+    in a new Scene.  CUDA: K10u, which takes the macro solidity outside the region from the
+    old macro words, so the scene's macro level must be its fine level's, as every writer of
+    a scene leaves it (``kernels.update_chunks``); CPU: the plain version."""
     slots, mask = _check_region(scene, slots, mask, gz, gx, z0, x0)
     if scene.device.type == "cuda":
         from .. import kernels

@@ -19,8 +19,10 @@ their plain versions on the card, on a scene built from a featured 2x2 area; the
 under ``cutout_atlas``, a hand-set atlas that reaches the alpha-cutout code (K10's flag
 bits, K11t's exact park-and-resolve and stochastic pass-through on rays aimed at flagged
 voxels, K11 in both trace modes with a camera aimed at one); and one launch each of K11
-and K12 per ``render_accumulate``.  The engine's frame path: K10u (``update_chunks``: a
-3x3 bucket into that scene, a removal and an edge bucket, bit for bit, in place), K13 and
+and K12 per ``render_accumulate``; K10 also on 36x20x384 volumes (a cut of the area and a sparse
+one with solids on its faces).  The engine's frame path: K10u (``update_chunks``: a
+3x3 bucket into that scene, a removal and an edge bucket, bit for bit, in place; a chain of
+six buckets against the plain chain run on its own), K13 and
 K13s (the blends after a moved and a static camera), K14 (with and without nsamp), K15 (also
 at 1x1, 5x3, 9x7 and 960x540) and K16, each bit for bit against its plain version on the
 card, and one engine tick /
@@ -442,6 +444,29 @@ def test_scene_fields_kernel_matches_plain_on_gpu(render_scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("source", ["cut_area", "random_mask"])
+def test_scene_fields_kernel_on_cut_dims_on_gpu(cuda_device, render_scene, source):
+    """K10 on 36x20x384 (multiples of 4, not of a 4x4 group's 16 columns in z or x): the
+    featured area tiled and cut, and a sparse seeded volume with solids on its six faces;
+    bit for bit, one count and at most 20 launches a call."""
+    _, _, blocks = render_scene
+    if source == "cut_area":
+        vol = brickmap.scene_volume(blocks).repeat(2, 1, 1)[:36, 6:26].contiguous()
+    else:
+        g = torch.Generator().manual_seed(11)
+        vol = (torch.rand((36, 20, 384), generator=g) < 2e-4).to(torch.uint8) * int(Block.STONE)
+        vol[:, :, :24] = int(Block.DIRT)
+        for z, x, y in ((0, 3, 200), (35, 5, 117), (7, 0, 301), (11, 19, 90), (20, 13, 383)):
+            vol[z, x, y] = int(Block.BIRCH_LEAVES)
+        vol = vol.to(cuda_device)
+    kernels.reset_launch_counts()
+    got = kernels.scene_fields(vol)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["scene_fields"] == 1 and kernels.scene_launches() <= 20
+    assert torch.equal(got, brickmap.build_fields_plain(vol))
+
+
+@pytest.mark.cuda
 def test_trace_kernel_matches_plain_on_gpu(cuda_device, render_scene):
     scene, player, _ = render_scene
     cam = player.camera_params(1920, 1080, device=cuda_device)
@@ -573,6 +598,31 @@ def test_update_chunks_kernel_matches_plain_on_gpu(cuda_device, render_scene):
         assert torch.equal(out.flat, want), (gz, gx, z0, x0)
         assert int((out.flat != before).sum()) > 1000
         scene = out
+
+
+@pytest.mark.cuda
+def test_update_chunks_kernel_chain_matches_plain_chain_on_gpu(cuda_device, render_scene):
+    """K10u over a chain of six buckets on a 6x6-chunk scene (rewrites, removals, the corner,
+    buckets that overlap), its macro level read back from its own earlier calls each time,
+    against the plain chain run on its own; at most 20 launches a call."""
+    _, _, blocks = render_scene
+    tiled = blocks.repeat(3, 3, 1, 1, 1)
+    scene = brickmap.build_scene(tiled, -3, -3)
+    plain = brickmap.Scene(scene.flat.clone(), scene.origin, scene.dims)
+    slot_table = blocks.reshape(4, 16, 16, 384).contiguous()
+    chain = ((3, 3, 0, 0, [3, 2, 1, 0, 3, 2, 1, 0, 3], [True] * 9),
+             (3, 3, 48, 48, [0] * 9, [False] * 9),
+             (2, 2, 64, 64, [1, 1, 2, 2], [True, False, True, True]),
+             (1, 1, 80, 0, [2], [True]),
+             (3, 3, 32, 16, [0, 1, 2, 3, 0, 1, 2, 3, 0], [True] * 4 + [False] + [True] * 4),
+             (1, 2, 0, 64, [3, 0], [False, False]))
+    for gz, gx, z0, x0, slots, mask in chain:
+        plain.flat.copy_(brickmap.update_chunks_plain(plain, slot_table, slots, mask, gz, gx, z0, x0))
+        kernels.reset_launch_counts()
+        scene = brickmap.update_chunks(scene, slot_table, slots, mask, gz, gx, z0, x0)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["update_chunks"] == 1 and kernels.scene_launches() <= 20
+        assert torch.equal(scene.flat, plain.flat), (gz, gx, z0, x0)
 
 
 def _frame_inputs(device, h=45, w=80, seed=3):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time K4 (chunk fill), K5 (feature placement), K7a (the per-placement stream pre-kernel),
-K7 (area feature application) and K7s (the scheduler's per-chunk feature application) of two
-or more checkouts of the port, in turns, on one GPU.
+K7 (area feature application) and K7s (the scheduler's per-chunk feature application), and
+K10 (scene fields) and K10u (the streamed scene update) of two or more checkouts of the
+port, in turns, on one GPU.
 
 Usage (on a machine with a CUDA GPU), e.g. a parent commit unpacked under build/:
 
-    python3 tools/kernel_ab.py build/parent . . build/parent [--reps 20]
+    python3 tools/kernel_ab.py build/parent . . build/parent [--reps 20] [--only gen|scene]
 
 Each root runs in its own process, in the order given, and builds its own kernels (into
 ROOT/build/mmt_kernels; the first build of a root prints ptxas's registers and spills of
@@ -17,7 +18,14 @@ destination: 16 chunks, the 4 x 4 in the middle of the area, into a table of the
 rows; where the root's K7a has no ``out=``, its rows and the two ``index_copy_`` the drain
 made, the copies' device time under ``all``), K7, the featured slice
 (generate_area_fused(..., features=True)), and K7s on those 16 chunks (their 49 sources'
-lists as a slot table).  A root's first build also prints its kernels' SASS sizes.
+lists as a slot table).  ``scene`` (with ``--only scene`` alone): K10 on the 10x10 bench
+scene's volume (four featured 5x5 areas, as tools/scenelib.py tiles them) and on the featured
+33x33 area's, K10u on a 3x3 bucket of the 33x33 scene (as chip_smoke.py's phase 13 times it),
+each a call and on the device (every span of a call), and the fly-through's upload: the
+reference drain of ``app.engine.Engine`` (bench_flythrough.py's configuration), its 121 K10u
+buckets timed on the host clock ending in a synchronize, then every bucket again three times,
+a refresh on the host clock and under the profiler, then twice 30 ticks 2 blocks forward and a
+present (ms a frame, host clock).  A root's first build also prints its kernels' SASS sizes.
 """
 
 from __future__ import annotations
@@ -31,10 +39,15 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 KERNEL_NAMES = ("fill_kernel", "placements_kernel", "feature_streams_kernel", "features_kernel",
-                "features_slots_kernel", "cull_kernel")
+                "features_slots_kernel", "cull_kernel",
+                # K10 / K10u: the kernels of csrc/brickmap.cu (and those of its earlier design)
+                "scene_prep_kernel", "update_prep_kernel", "scene_round_kernel", "scene_encode_kernel",
+                "solid_kernel", "macro_solid_kernel", "top_kernel", "sky_kernel", "init_kernel",
+                "shift_min_kernel", "round_update_kernel", "encode_kernel", "window_kernel")
 
 
 def cuda_ms(torch, fn, reps):
@@ -90,7 +103,90 @@ def sass_sizes(lib) -> dict:
     return sizes
 
 
-def worker(root: str, reps: int) -> None:
+def bench_volume(torch, pipeline, dev):
+    """The 10x10 bench scene's [160, 160, 384] volume (chip_smoke.py's bench_blocks)."""
+    rows = []
+    for tz in range(2):
+        row = []
+        for tx in range(2):
+            cx0, cz0 = -5 + 5 * tx, -5 + 5 * tz
+            out = pipeline.generate_area_fused(pipeline.chunk_positions(cx0 - 1, cz0 - 1, 7, 7, device=dev), 5, 5,
+                                               features=True)
+            row.append(out["blocks"].reshape(5, 5, 16, 16, 384))
+        rows.append(torch.cat(row, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def launch_spans(torch, fn) -> list:
+    """[(kernel, ms)] of one call of ``fn`` under the profiler, in launch order (after a warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev.time_range.start, ev.name, (ev.time_range.end - ev.time_range.start) / 1e3)
+                 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return [(next((k for k in KERNEL_NAMES if re.search(rf"\b{k}\b", name)), name[:40]), round(ms, 4))
+            for _, name, ms in evs]
+
+
+def scene_worker(torch, out: dict, reps: int, dev) -> None:
+    """K10 at 10x10 and 33x33, K10u on a 3x3 bucket of the 33x33 scene, the 121-bucket upload."""
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
+    from mega_minecraft_tpu_torch.render import brickmap
+    from mega_minecraft_tpu_torch.terrain import pipeline
+
+    blocks33 = pipeline.generate_area(-16, -16, 33, 33, features=True, device=dev)["blocks"]
+    for tag, blocks in (("10x10", bench_volume(torch, pipeline, dev)), ("33x33", blocks33)):
+        vol = brickmap.scene_volume(blocks)
+        out[f"scene_fields_{tag}_ms"] = cuda_ms(torch, lambda: kernels.scene_fields(vol), max(3, reps // 4))
+        out[f"scene_fields_{tag}_dev"] = device_ms(torch, lambda: kernels.scene_fields(vol), max(3, reps // 4))
+        out[f"scene_fields_{tag}_spans"] = launch_spans(torch, lambda: kernels.scene_fields(vol))
+    scene = brickmap.build_scene(blocks33, -16, -16)
+    slot_table = blocks33.reshape(33 * 33, 16, 16, 384)
+    slots = [(2 * 3 + dz) * 33 + 7 * 3 + dx for dz in range(3) for dx in range(3)]
+    args = (slot_table, slots, [True] * 9, 3, 3, 4 * 48, 5 * 48)
+    out["update_chunks_ms"] = cuda_ms(torch, lambda: brickmap.update_chunks(scene, *args), reps)
+    out["update_chunks_dev"] = device_ms(torch, lambda: brickmap.update_chunks(scene, *args), reps)
+    out["update_chunks_spans"] = launch_spans(torch, lambda: brickmap.update_chunks(scene, *args))
+    del scene, slot_table, blocks33
+    torch.cuda.empty_cache()
+    cfg = EngineConfig(width=1920, height=1080, view_chunks=33, gen_radius=None, skip_erosion=False,
+                       use_denoising=True, use_upscaling=True, use_reprojection=True, native_scheduler=True,
+                       device="cuda")
+    eng = Engine(cfg)
+    eng.scheduler.drain()
+    new = list(eng.scheduler.newly_filled)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng._upload_new_chunks()
+    torch.cuda.synchronize()
+    out["upload_s"] = time.perf_counter() - t0
+    out["upload_buckets"] = kernels.launch_counts()["update_chunks"]
+    refresh = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng._refresh_buckets(new)
+        torch.cuda.synchronize()
+        refresh.append(time.perf_counter() - t0)
+    out["refresh_s"] = refresh
+    out["refresh_dev_s"] = device_ms(torch, lambda: eng._refresh_buckets(new), 1)["all"] / 1e3
+    # the fly-through's frame loop after the upload (no K10u in it: the window stays put), as
+    # chip_smoke.py's phase 14 times it: 30 ticks 2 blocks forward and one present, twice
+    fly = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(30):
+            eng.tick(1.0 / 30.0, move=(0.0, 0.0, 2.0))
+        eng.present()
+        fly.append((time.perf_counter() - t0) / 30 * 1e3)
+    out["flythrough_ms_frame"] = fly
+
+
+def worker(root: str, reps: int, only: str | None) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -111,9 +207,14 @@ def worker(root: str, reps: int) -> None:
         print("SASS instructions:", sass_sizes(_build.BUILD_DIR / _build.LIB_NAME))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out = {"root": root, "card": smi, "build_s": round(build_s, 1)}
+    if only != "gen":
+        scene_worker(torch, out, reps, dev)
+    if only == "scene":
+        print(json.dumps(out))
+        return
     table = (tables.LUSH_TABLE_CELLS,) if "table_cells" in inspect.signature(kernels.fill).parameters else ()
     in_place = "out" in inspect.signature(kernels.feature_streams).parameters
-    out = {"root": root, "card": smi, "build_s": round(build_s, 1)}
     for n, first in ((5, -1), (33, -17)):  # the areas' first halo chunk, as chip_smoke.py's
         pos = pipeline.chunk_positions(first, first, n + 2, n + 2, device=dev)
         hf, w = kernels.heightfield(pos)
@@ -162,14 +263,15 @@ def main(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("roots", nargs="+", help="checkouts of the port, run in this order")
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--only", choices=("gen", "scene"), help="time only the generation or the scene kernels")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
-        worker(args.roots[0], args.reps)
+        worker(args.roots[0], args.reps, args.only)
         return
     for root in args.roots:
-        run = subprocess.run([sys.executable, __file__, "--worker", root, "--reps", str(args.reps)],
-                             capture_output=True, text=True)
+        run = subprocess.run([sys.executable, __file__, "--worker", root, "--reps", str(args.reps)]
+                             + (["--only", args.only] if args.only else []), capture_output=True, text=True)
         print(run.stdout, end="")
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr)
