@@ -128,9 +128,10 @@ __device__ TraceOut trace_ray(const SceneArgs& sc, float ox, float oy, float oz,
       float t_exit = fminn(fminn(tex, tey), tez);
 
       bool candidate = !coarse && (is_air ? is_solid : val != medium);
-      float t_a, t_b;
-      bool ok_a, ok_b;
-      quads(ox, oz, dx, dz, vx, vz, o0, o2, t, t_exit, t_a, t_b, ok_a, ok_b);
+      // only a candidate X-shaped voxel reads the crossed quads (two divisions)
+      float t_a = 0.f, t_b = 0.f;
+      bool ok_a = false, ok_b = false;
+      if (candidate && is_x) quads(ox, oz, dx, dz, vx, vz, o0, o2, t, t_exit, t_a, t_b, ok_a, ok_b);
       bool flagged = candidate && (packed & 0x80000000u);
       bool pend_new = false, opaque = true;
       if (stochastic) {
@@ -186,11 +187,11 @@ __device__ TraceOut trace_ray(const SceneArgs& sc, float ox, float oy, float oz,
     float tey = fabsf(dy) < F(1e-12) ? F(3e38) : (by - oy) * idy;
     float tez = fabsf(dz) < F(1e-12) ? F(3e38) : (bz - oz) * idz;
     float t_exit = fminn(fminn(tex, tey), tez);
-    float t_a, t_b;
-    bool ok_a, ok_b;
-    quads(ox, oz, dx, dz, vx, vz, o0, o2, t, t_exit, t_a, t_b, ok_a, ok_b);
+    float t_a = 0.f, t_b = 0.f;
+    bool ok_a = false, ok_b = false;
     bool a1, a2 = false;
     if (is_x) {
+      quads(ox, oz, dx, dz, vx, vz, o0, o2, t, t_exit, t_a, t_b, ok_a, ok_b);
       float qa_y = oy + dy * t_a, qb_y = oy + dy * t_b;
       a1 = texel_alpha(sc.tex_diff, val, ox + dx * t_a, 1.f - (qa_y - floorf(qa_y)), 0);
       a2 = texel_alpha(sc.tex_diff, val, ox + dx * t_b, 1.f - (qb_y - floorf(qb_y)), 0);

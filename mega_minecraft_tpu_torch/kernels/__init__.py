@@ -647,7 +647,7 @@ class _RenderArgs(ctypes.Structure):
         ("frame_id", ctypes.c_uint32)] + [(k, ctypes.c_int) for k in (
             "exact", "max_ray_depth", "max_loop_iters", "max_steps", "bounce_steps", "shadow_steps",
             "mapped_normals")] + [("fog_scatter", ctypes.c_float)] + [
-        (k, ctypes.c_void_p) for k in ("color", "albedo", "normal", "depth", "steps")]
+        (k, ctypes.c_void_p) for k in ("color", "albedo", "normal", "depth", "steps", "ws", "pass_steps")]
 
 
 def _scene_args(scene) -> _SceneArgs:
@@ -719,9 +719,15 @@ def _param_vec(dev, cam, params) -> torch.Tensor:
 
 
 def render_sample(scene, cam, params, height: int, width: int, frame_id: int, row0: int,
-                  full_height: int, col0: int, full_width: int, exact: bool, want_steps: bool):
+                  full_height: int, col0: int, full_width: int, exact: bool, want_steps: bool,
+                  pass_steps=None):
     """K11: one 1-spp sample of a tile -> (color, albedo, normal [H, W, 3] f32, depth
-    [H, W] f32, steps [H, W, 4] i32 or None)."""
+    [H, W] f32, steps [H, W, 4] i32 or None).  One count per call; a launch a bounce
+    (``render_launches()``: pass 0 over the tile, then one a later bounce over the live
+    paths, whose queues and counters live in a workspace of this call).  ``pass_steps``: an
+    i32 [MAX_LOOP_ITERS, H * W, 3] tensor on the scene's device or None; row (k, i) gets
+    (pixel, radiance DDA steps, shadow DDA steps) of pass k's lane i (pass 0: i is the
+    pixel; later passes: the queue slot), rows no lane took keep their values."""
     from ..render import tracer
     from ..render.materials import kernel_tables
 
@@ -729,21 +735,32 @@ def render_sample(scene, cam, params, height: int, width: int, frame_id: int, ro
     pvec = _param_vec(dev, cam, params)
     if not (0 <= row0 and row0 + height <= full_height and 0 <= col0 and col0 + width <= full_width):
         raise ValueError("the tile must lie inside the frame")
+    loops = tracer.MAX_LOOP_ITERS
+    if pass_steps is not None:
+        _check(pass_steps, "pass_steps", torch.int32, (loops, height * width, 3), dev)
     tabs = kernel_tables(dev)
     e = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
     color, albedo, normal, depth = e(height, width, 3), e(height, width, 3), e(height, width, 3), e(height, width)
     steps = e(height, width, 4, dt=torch.int32) if want_steps else None
+    lib = _build.load() if height and width else None
+    ws = e(lib.mmt_render_workspace_words(height, width, loops), dt=torch.int32) if lib else None
+    ptr = lambda v: None if v is None else _p(v)  # noqa: E731
     args = _RenderArgs(_scene_args(scene), _p(tabs["tex_emis"]), _p(tabs["tex_norm"]), _p(pvec),
                        height, width, row0, col0, full_height, full_width,
-                       int(frame_id) & 0xFFFFFFFF, int(exact), tracer.MAX_RAY_DEPTH,
-                       tracer.MAX_LOOP_ITERS, tracer.MAX_TRACE_STEPS, tracer.BOUNCE_TRACE_STEPS,
+                       int(frame_id) & 0xFFFFFFFF, int(exact), tracer.MAX_RAY_DEPTH, loops,
+                       tracer.MAX_TRACE_STEPS, tracer.BOUNCE_TRACE_STEPS,
                        tracer.SHADOW_TRACE_STEPS, int(tracer.MAPPED_NORMALS),
                        float(tracer.FOG_SCATTER), _p(color), _p(albedo), _p(normal), _p(depth),
-                       None if steps is None else _p(steps))
-    if height and width:
+                       ptr(steps), ptr(ws), ptr(pass_steps))
+    if lib is not None:
         with torch.cuda.device(dev):
-            _launch_struct("render_sample", _build.load().mmt_render_sample, args)
+            _launch_struct("render_sample", lib.mmt_render_sample, args)
     return color, albedo, normal, depth, steps
+
+
+def render_launches() -> int:
+    """The kernel launches that the last K11 call made on the card."""
+    return int(_build.load().mmt_render_launches())
 
 
 def accumulate(c_old, a_old, n_old, color, albedo, normal, frame_id: int):

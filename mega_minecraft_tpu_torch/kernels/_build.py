@@ -95,6 +95,10 @@ SIGNATURES = {
     "mmt_trace": [_P, _P],
     # &RenderArgs, stream
     "mmt_render_sample": [_P, _P],
+    # height, width, max_loop_iters: the i32 words of K11's workspace
+    "mmt_render_workspace_words": [_I, _I, _I],
+    # (no arguments): the kernel launches of the last K11 call
+    "mmt_render_launches": [],
     # old colour, albedo, normal, new colour, albedo, normal, count, fid, mult, out x3, stream
     "mmt_accumulate": [_P] * 6 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [_P] * 4,
     # history colour, albedo, normal, depth, nsamp, sample colour, albedo, normal, depth, cams,

@@ -11,8 +11,9 @@ Entry points, each dispatching on the scene's (or tensors') device: CUDA launche
 hand-written kernel or raises, the CPU runs the plain version below:
 
 - ``trace``: one DDA per ray (K11t, ``csrc/tracer.cu`` ``trace_kernel``);
-- ``render_sample``: one 1-spp sample of a frame or tile (K11, ``render_sample_kernel``,
-  one thread per pixel, the first bounce the first iteration of its loop);
+- ``render_sample``: one 1-spp sample of a frame or tile (K11: ``render_sample_kernel``
+  runs the first bounce over the frame, one thread a pixel, then ``render_bounce_kernel``
+  one later bounce a launch over the compacted live paths);
 - ``accumulate``: the running average (K12, ``csrc/accumulate.cu``);
 - ``render_accumulate``: K11 then K12.
 

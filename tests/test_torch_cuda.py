@@ -499,6 +499,25 @@ def test_render_sample_kernel_matches_plain_on_gpu(cuda_device, render_scene, su
 
 
 @pytest.mark.cuda
+def test_render_sample_kernel_odd_tile_matches_plain_on_gpu(cuda_device, render_scene):
+    """K11 on a 997x135 tile at row 471, column 461 of the 1080p frame (sizes that fit no
+    CTA tile, edges inside the frame, the scene in view): every output equal to the plain
+    version, one count and ``render_launches()`` kernel launches a call."""
+    scene, player, _ = render_scene
+    cam = player.camera_params(1920, 1080, device=cuda_device)
+    params = sky.sky_params(1.0, 0.0, device=cuda_device)
+    tile = dict(row0=471, full_height=1080, col0=461, full_width=1920, exact=False)
+    kernels.reset_launch_counts()
+    got = tracer.render_sample(scene, cam, params, 135, 997, 3, want_depth=True, want_steps=True, **tile)
+    assert kernels.launch_counts()["render_sample"] == 1
+    assert kernels.render_launches() == tracer.MAX_LOOP_ITERS
+    want = tracer.render_sample_plain(scene, cam, params, 135, 997, 3, **tile)
+    for name, g, w in zip(("color", "albedo", "normal", "depth", "steps"), got, want):
+        assert torch.equal(g, w), name
+    assert bool((want[4][..., 3] > 1).any())  # paths that bounce
+
+
+@pytest.mark.cuda
 def test_render_sample_kernel_mapped_normals_on_gpu(cuda_device, render_scene, monkeypatch):
     """The normal-map switch (config.render.mapped_normals, off by default) in both versions."""
     scene, player, _ = render_scene

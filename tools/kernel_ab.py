@@ -6,7 +6,7 @@ port, in turns, on one GPU.
 
 Usage (on a machine with a CUDA GPU), e.g. a parent commit unpacked under build/:
 
-    python3 tools/kernel_ab.py build/parent . . build/parent [--reps 20] [--only gen|scene]
+    python3 tools/kernel_ab.py build/parent . . build/parent [--reps 20] [--only gen|scene|render]
 
 Each root runs in its own process, in the order given, and builds its own kernels (into
 ROOT/build/mmt_kernels; the first build of a root prints ptxas's registers and spills of
@@ -25,13 +25,21 @@ each a call and on the device (every span of a call), and the fly-through's uplo
 reference drain of ``app.engine.Engine`` (bench_flythrough.py's configuration), its 121 K10u
 buckets timed on the host clock ending in a synchronize, then every bucket again three times,
 a refresh on the host clock and under the profiler, then twice 30 ticks 2 blocks forward and a
-present (ms a frame, host clock).  A root's first build also prints its kernels' SASS sizes.
+present (ms a frame, host clock).  ``render`` (with ``--only render`` alone): K11 on the
+10x10 bench scene and the featured 33x33 area at 1080p and 540p (chip_smoke.py's camera, day,
+frame 3), each a call and on the device (the mean span of each kernel, and every span of a
+call in order) and a digest of its outputs (colour, albedo, normal, depth, counts; equal
+digests: equal outputs), K11t on the 10x10 scene's 1080p primary rays, K17 (``render_debug``, no tint)
+at 1080p on the 10x10 scene, and the fly-through's frame loop as ``scene`` runs it (the
+reference drain, the upload, then twice 30 ticks and a present).  A root's first build also
+prints its kernels' SASS sizes.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import inspect
 import io
 import json
@@ -47,7 +55,10 @@ KERNEL_NAMES = ("fill_kernel", "placements_kernel", "feature_streams_kernel", "f
                 # K10 / K10u: the kernels of csrc/brickmap.cu (and those of its earlier design)
                 "scene_prep_kernel", "update_prep_kernel", "scene_round_kernel", "scene_encode_kernel",
                 "solid_kernel", "macro_solid_kernel", "top_kernel", "sky_kernel", "init_kernel",
-                "shift_min_kernel", "round_update_kernel", "encode_kernel", "window_kernel")
+                "shift_min_kernel", "round_update_kernel", "encode_kernel", "window_kernel",
+                # K11t, K11 (pass 0 and the later bounces) and K17 (csrc/tracer.cu, csrc/debug.cu)
+                "trace_kernel", "render_sample_kernel", "render_bounce_kernel", "debug_shade_kernel",
+                "blur_kernel")
 
 
 def cuda_ms(torch, fn, reps):
@@ -104,8 +115,9 @@ def sass_sizes(lib) -> dict:
 
 
 def bench_volume(torch, pipeline, dev):
-    """The 10x10 bench scene's [160, 160, 384] volume (chip_smoke.py's bench_blocks)."""
-    rows = []
+    """The 10x10 bench scene's [160, 160, 384] volume (chip_smoke.py's bench_blocks) and its
+    highest heightfield value."""
+    rows, hmax = [], 0.0
     for tz in range(2):
         row = []
         for tx in range(2):
@@ -113,8 +125,9 @@ def bench_volume(torch, pipeline, dev):
             out = pipeline.generate_area_fused(pipeline.chunk_positions(cx0 - 1, cz0 - 1, 7, 7, device=dev), 5, 5,
                                                features=True)
             row.append(out["blocks"].reshape(5, 5, 16, 16, 384))
+            hmax = max(hmax, float(out["heightfield"].max()))
         rows.append(torch.cat(row, dim=1))
-    return torch.cat(rows, dim=0)
+    return torch.cat(rows, dim=0), hmax
 
 
 def launch_spans(torch, fn) -> list:
@@ -133,12 +146,11 @@ def launch_spans(torch, fn) -> list:
 def scene_worker(torch, out: dict, reps: int, dev) -> None:
     """K10 at 10x10 and 33x33, K10u on a 3x3 bucket of the 33x33 scene, the 121-bucket upload."""
     from mega_minecraft_tpu_torch import kernels
-    from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
     from mega_minecraft_tpu_torch.render import brickmap
     from mega_minecraft_tpu_torch.terrain import pipeline
 
     blocks33 = pipeline.generate_area(-16, -16, 33, 33, features=True, device=dev)["blocks"]
-    for tag, blocks in (("10x10", bench_volume(torch, pipeline, dev)), ("33x33", blocks33)):
+    for tag, blocks in (("10x10", bench_volume(torch, pipeline, dev)[0]), ("33x33", blocks33)):
         vol = brickmap.scene_volume(blocks)
         out[f"scene_fields_{tag}_ms"] = cuda_ms(torch, lambda: kernels.scene_fields(vol), max(3, reps // 4))
         out[f"scene_fields_{tag}_dev"] = device_ms(torch, lambda: kernels.scene_fields(vol), max(3, reps // 4))
@@ -152,11 +164,7 @@ def scene_worker(torch, out: dict, reps: int, dev) -> None:
     out["update_chunks_spans"] = launch_spans(torch, lambda: brickmap.update_chunks(scene, *args))
     del scene, slot_table, blocks33
     torch.cuda.empty_cache()
-    cfg = EngineConfig(width=1920, height=1080, view_chunks=33, gen_radius=None, skip_erosion=False,
-                       use_denoising=True, use_upscaling=True, use_reprojection=True, native_scheduler=True,
-                       device="cuda")
-    eng = Engine(cfg)
-    eng.scheduler.drain()
+    eng = reference_engine(torch)
     new = list(eng.scheduler.newly_filled)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -173,8 +181,26 @@ def scene_worker(torch, out: dict, reps: int, dev) -> None:
         refresh.append(time.perf_counter() - t0)
     out["refresh_s"] = refresh
     out["refresh_dev_s"] = device_ms(torch, lambda: eng._refresh_buckets(new), 1)["all"] / 1e3
-    # the fly-through's frame loop after the upload (no K10u in it: the window stays put), as
-    # chip_smoke.py's phase 14 times it: 30 ticks 2 blocks forward and one present, twice
+    out["flythrough_ms_frame"] = fly_loop(torch, eng)
+
+
+def reference_engine(torch):
+    """The fly-through's engine (bench_flythrough.py's configuration) after its drain."""
+    from mega_minecraft_tpu_torch.app.engine import Engine, EngineConfig
+
+    cfg = EngineConfig(width=1920, height=1080, view_chunks=33, gen_radius=None, skip_erosion=False,
+                       use_denoising=True, use_upscaling=True, use_reprojection=True, native_scheduler=True,
+                       device="cuda")
+    eng = Engine(cfg)
+    eng.scheduler.drain()
+    torch.cuda.synchronize()
+    return eng
+
+
+def fly_loop(torch, eng) -> list:
+    """The fly-through's frame loop after the upload (no K10u in it: the window stays put), as
+    chip_smoke.py's phase 14 times it: 30 ticks 2 blocks forward and one present, twice; ms a
+    frame on the host clock."""
     fly = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -183,7 +209,53 @@ def scene_worker(torch, out: dict, reps: int, dev) -> None:
             eng.tick(1.0 / 30.0, move=(0.0, 0.0, 2.0))
         eng.present()
         fly.append((time.perf_counter() - t0) / 30 * 1e3)
-    out["flythrough_ms_frame"] = fly
+    return fly
+
+
+def render_worker(torch, out: dict, reps: int, dev) -> None:
+    """K11 at 1080p and 540p on the 10x10 and 33x33 scenes, K11t, K17, the fly-through's loop."""
+    import numpy as np
+
+    from mega_minecraft_tpu_torch import kernels
+    from mega_minecraft_tpu_torch.render import brickmap, camera, render_debug, sky, tracer
+    from mega_minecraft_tpu_torch.terrain import pipeline
+
+    blocks10, hmax = bench_volume(torch, pipeline, dev)
+    player = camera.Player(pos=np.array([0.0, hmax + 16.0, -60.0], np.float32), theta=0.05, phi=-0.22)
+    day = sky.sky_params(1.0, 0.0, device=dev)
+    scene10 = brickmap.build_scene(blocks10, -5, -5)
+    cam = player.camera_params(1920, 1080, device=dev)
+    rays, _ = tracer.primary_rays(cam, 1080, 1920, 0)
+    med = torch.zeros((1080, 1920), dtype=torch.uint8, device=dev)
+    out["trace_ms"] = cuda_ms(torch, lambda: tracer.trace(scene10, *rays, med), reps)
+    out["trace_dev"] = device_ms(torch, lambda: tracer.trace(scene10, *rays, med), reps)
+    out["render_debug_ms"] = cuda_ms(torch, lambda: render_debug(scene10, cam, day, 1080, 1920), max(3, reps // 4))
+    out["render_debug_dev"] = device_ms(torch, lambda: render_debug(scene10, cam, day, 1080, 1920),
+                                        max(3, reps // 4))
+    blocks33 = pipeline.generate_area(-16, -16, 33, 33, features=True, device=dev)["blocks"]
+    scene33 = brickmap.build_scene(blocks33, -16, -16)
+    del blocks33, blocks10
+    for tag, scene in (("10x10", scene10), ("33x33", scene33)):
+        for h, w in ((1080, 1920), (540, 960)):
+            cam_hw = player.camera_params(w, h, device=dev)
+
+            def k11(scene=scene, cam_hw=cam_hw, h=h, w=w):
+                return tracer.render_sample(scene, cam_hw, day, h, w, 3)
+
+            digest = hashlib.sha256()
+            for t in tracer.render_sample(scene, cam_hw, day, h, w, 3, want_depth=True, want_steps=True):
+                digest.update(t.cpu().numpy().tobytes())
+            out[f"render_sample_{tag}_{h}_sha256"] = digest.hexdigest()[:16]  # equal across roots: bit for bit
+            out[f"render_sample_{tag}_{h}_ms"] = cuda_ms(torch, k11, reps)
+            out[f"render_sample_{tag}_{h}_dev"] = device_ms(torch, k11, reps)
+            out[f"render_sample_{tag}_{h}_spans"] = launch_spans(torch, k11)
+            if hasattr(kernels, "render_launches"):
+                out[f"render_sample_{tag}_{h}_launches"] = kernels.render_launches()
+    del scene10, scene33
+    torch.cuda.empty_cache()
+    eng = reference_engine(torch)
+    eng._upload_new_chunks()
+    out["flythrough_ms_frame"] = fly_loop(torch, eng)
 
 
 def worker(root: str, reps: int, only: str | None) -> None:
@@ -208,6 +280,10 @@ def worker(root: str, reps: int, only: str | None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out = {"root": root, "card": smi, "build_s": round(build_s, 1)}
+    if only == "render":
+        render_worker(torch, out, reps, dev)
+        print(json.dumps(out))
+        return
     if only != "gen":
         scene_worker(torch, out, reps, dev)
     if only == "scene":
@@ -263,7 +339,8 @@ def main(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("roots", nargs="+", help="checkouts of the port, run in this order")
     p.add_argument("--reps", type=int, default=20)
-    p.add_argument("--only", choices=("gen", "scene"), help="time only the generation or the scene kernels")
+    p.add_argument("--only", choices=("gen", "scene", "render"),
+                   help="time only the generation, the scene or the render kernels")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
